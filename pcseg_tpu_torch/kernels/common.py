@@ -1,0 +1,104 @@
+"""Shared pieces of the kernel wrappers: grid shifts and segmented
+Hillis-Steele scans for the plain PyTorch versions, and argument checks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def shift2(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
+    """out[..., r, c] = x[..., r + dr, c + dc] on the last two axes (out of
+    bounds -> fill)."""
+    h, w = x.shape[-2], x.shape[-1]
+    out = torch.full_like(x, fill)
+    if abs(dr) >= h or abs(dc) >= w:
+        return out
+    out[..., max(0, -dr):h + min(0, -dr), max(0, -dc):w + min(0, -dc)] = \
+        x[..., max(0, dr):h + min(0, dr), max(0, dc):w + min(0, dc)]
+    return out
+
+
+def _shift_dim(x, d, dim, fill):
+    """out[j] = x[j - d] along ``dim`` (out of range -> fill)."""
+    n = x.shape[dim]
+    out = torch.full_like(x, fill)
+    if abs(d) >= n:
+        return out
+    if d > 0:
+        out.narrow(dim, d, n - d).copy_(x.narrow(dim, 0, n - d))
+    else:
+        out.narrow(dim, 0, n + d).copy_(x.narrow(dim, -d, n + d))
+    return out
+
+
+def seg_min_scan(v, blocked, dim, reverse, big):
+    """Segmented inclusive min-scan (Hillis-Steele doubling): per position,
+    the min over the run of unblocked elements ending there; a blocked
+    element contributes only its own value."""
+    b = blocked
+    d = 1
+    n = v.shape[dim]
+    while d < n:
+        s = -d if reverse else d
+        vs = _shift_dim(v, s, dim, big)
+        bs = _shift_dim(b, s, dim, True)
+        v = torch.where(b, v, torch.minimum(v, vs))
+        b = b | bs
+        d *= 2
+    return v
+
+
+def seg_or_scan(v, blocked, dim, reverse):
+    """Segmented inclusive OR-scan on packed int32 bit words; ``blocked``
+    is a word too (bit set = that bit's run is cut)."""
+    b = blocked
+    d = 1
+    n = v.shape[dim]
+    while d < n:
+        s = -d if reverse else d
+        vs = _shift_dim(v, s, dim, 0)
+        bs = _shift_dim(b, s, dim, -1)
+        v = v | (vs & ~b)
+        b = b | bs
+        d *= 2
+    return v
+
+
+def check(name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def use_kernel(device: torch.device, impl) -> bool:
+    """True when the CUDA kernel runs: a CUDA tensor and no ``impl`` given.
+    A CPU tensor takes the plain version; ``impl="plain"`` (tests and the
+    smoke script only) forces it. Anything else raises."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    if impl == "plain" or device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    return True
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
