@@ -1,37 +1,61 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints one JSON line; any failure exits nonzero without the
 final result line):
   1. device: the card's name and power limit; TF32 off;
-  2. build: both CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
-     each, started together);
-  3. the main path, ``Segmenter.device_forward_stream`` at VGA (480x640),
-     batch 8, on the room and the cluttered scenes, with every launch
-     counter set to 0 just before and read just after; each kernel must
-     have launched;
-  4. the epoch kernel against its plain PyTorch version on real inputs of
-     that path (the first closure epoch's state, captured from a plain
+  2. build: the three CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
+     each, started together) and the host-ops library (g++), which must
+     load;
+  3. the serving path at 32 slots, ``Segmenter.device_forward_stream`` at
+     VGA (480x640), batch 8, on the room and the cluttered scenes, with
+     every launch counter set to 0 just before and read just after; the
+     epoch and CCL kernels must have launched;
+  4. the epoch kernel (B1) against its plain PyTorch version on real inputs
+     of that path (the first closure epoch's state, captured from a plain
      run): words, counts, ranks and indices exact, moments within the
      stated tolerance;
-  5. the CCL kernel against its plain version on the cluster stage's real
-     inputs (captured the same way, cluttered scene): exact;
+  5. the CCL kernel (B2) against its plain version on the cluster stage's
+     real inputs (captured the same way, cluttered scene): exact;
   6. the stream forward against its ``impl="plain"`` run (labels and
      counts exact, planes within 1e-4) and against a second kernel run
      (bit-identical);
   7. the committed JAX golden at 128x160 (cluttered scene, seed 5, B=2):
      labels and counts exact, planes within the conditioning-aware
      tolerance of the CPU tests (PLANE_ATOL for well-conditioned fits);
-  8. times: CUDA-event medians of kernel vs plain, and the stream's
-     ms/batch and points/s.
+  8. times of that path: CUDA-event medians of B1 and B2 against their
+     plain versions and the stream's ms/batch and points/s (taken here,
+     before the 64-slot phases, so they compare with earlier runs);
+  9. the serving path at 64 slots (flood epochs), same batches, counted
+     like phase 3: the flood and CCL kernels must launch, the epoch kernel
+     must not;
+ 10. the flood kernel (B3) against its plain version: exact on the first
+     flood of a plain 64-slot run (cluttered scene, N = 16 word planes),
+     and on a constructed stack whose gate runs are <= 9 with max_run=9;
+     the rounds that flood needs to its fixed point;
+ 11. the 64-slot stream against its plain run and a rerun, as phase 6;
+ 12. the full pipeline, ``segment_frame_stream``, one VGA frame per case
+     (room and cluttered at 64 slots, cluttered at 32), counted like phase
+     3: equal to its plain run and to the committed JAX golden
+     ``jax_frame_vga.npz`` under ``golden_mismatches``' rule (the seed,
+     planar-region and cluster counts exact; labels, cluster sizes,
+     classes and boundary sets exact except for a few tau-band cells that
+     JAX's f32 and the port's f64 moment sums put on either side, which
+     the phase lists with the fits involved);
+ 13. times: B3 against its plain version at N = 16 and N = 2, the 64-slot
+     stream, ``segment_frame_stream`` ms/frame split into the device
+     program and the host finalize, synced stage times and a
+     torch.profiler window of the cluttered scene's paths.
 
-The line before the last lists the kernels; the last line is
-``{"ok": true, "device": {...}}``. Needs a CUDA card and the CUDA toolkit
-(nvcc); builds into ``build/pcseg_tpu_torch/``.
+The line before the last lists the kernels with their bounds; the last
+line is ``{"ok": true, "device": {...}}``. Needs a CUDA card, the CUDA
+toolkit (nvcc) and a host C++ compiler; builds into
+``build/pcseg_tpu_torch/``.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -49,7 +73,15 @@ REPS = 5
 # moments: f32 products summed in f64 in two orders, then rounded to f32
 MOM_RTOL, MOM_ATOL = 1e-6, 1e-5
 PLANE_ATOL = 1e-4
+AREA_RTOL = 1e-5
 EPS32 = 2.0 ** -23
+# H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+EXACT = ("labels", "metrics", "cluster_sizes", "counts", "plane_class",
+         "seed_indices", "boundary", "boundary_len", "disc", "disc_len")
+# label cells a fit's f32 (JAX) / f64 (port) moment sums may flip in a frame
+MAX_FIT_CELLS = 32
 
 
 def plane_tolerance(points):
@@ -99,15 +131,162 @@ def make_batch(base_u16, seed):
         .astype(np.uint16)
 
 
+def capture(module, fn_name, run):
+    """Arguments of the first call of ``module.fn_name`` during ``run()``
+    (a plain run: the spy records, the plain version computes)."""
+    seen = []
+    real = getattr(module, fn_name)
+
+    def spy(*args, **kw):
+        if not seen:
+            seen.append(args)
+        return real(*args, **kw)
+
+    setattr(module, fn_name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, fn_name, real)
+    return seen[0]
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, f32_ops=0):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
+    operations over the f32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_frames(got, want, tol_of, skip=()):
+    """frame_arrays dicts -> list of (field, message) mismatches: exact
+    fields, areas (rtol), planes and centroids (within tol_of(region)).
+    Regions in ``skip`` are left out of the per-region areas and boundary
+    sets."""
+    bad = []
+    per_region = ("boundary", "disc", "areas")
+    for key in EXACT:
+        if key.split("_len")[0] in per_region and skip:
+            continue
+        if got[key].shape != want[key].shape or \
+                not np.array_equal(got[key], want[key]):
+            bad.append((key, "differs"))
+    if bad:
+        return bad
+    for r in range(len(want["counts"])):
+        if r not in skip and not np.isclose(got["areas"][r], want["areas"][r],
+                                            rtol=AREA_RTOL, atol=0):
+            bad.append(("areas", f"region {r}"))
+        tol = tol_of(r)
+        for key in ("planes", "centroids"):
+            err = float(np.abs(got[key][r] - want[key][r]).max())
+            if err > tol:
+                bad.append((key, f"region {r}: {err} > {tol}"))
+    for key, n_key in (("boundary", "boundary_len"), ("disc", "disc_len")):
+        if not skip:
+            continue
+        g_parts = np.split(got[key], np.cumsum(got[n_key])[:-1])
+        w_parts = np.split(want[key], np.cumsum(want[n_key])[:-1])
+        for r, (a, b) in enumerate(zip(g_parts, w_parts)):
+            if r not in skip and not np.array_equal(a, b):
+                bad.append((key, f"region {r}"))
+    return bad
+
+
+def golden_mismatches(got, want, points):
+    """The port's frame_arrays against a JAX golden's -> (mismatches,
+    [(row, col), port label, golden label] of each differing cell, the fits
+    involved).
+
+    The seed count and the numbers of planar regions and of clusters are
+    exact. Label cells may differ only as planar claims decided by a fit:
+    JAX sums the refit moments in f32, the port in f64, so a plane differs
+    in its last digits and a cell at the tau-band edge may change owner
+    (the port with f32 sums gives JAX's labels, tests/test_torch_vga_fits.py).
+    Such cells are few (at most MAX_FIT_CELLS), each is a planar cell on one
+    side, and every record's count and every cluster's size moves by no
+    more than the differing cells. The planes and centroids stay within
+    plane_tolerance, widened for a region the cells touch by what they can
+    move its fit (their summed distance from its centroid over its count);
+    those regions are left out of the area and boundary checks. Otherwise
+    every field is exact, as in compare_frames."""
+    bad = []
+    for i, name in ((0, "num_seeds"), (2, "num_planar_regions"),
+                    (3, "num_clusters")):
+        if got["metrics"][i] != want["metrics"][i]:
+            bad.append((name, f"{got['metrics'][i]} != {want['metrics'][i]}"))
+    if bad:
+        return bad, [], []
+    cells = np.argwhere(got["labels"] != want["labels"])
+    g_lab = got["labels"][tuple(cells.T)]
+    w_lab = want["labels"][tuple(cells.T)]
+    n_planar = int(want["metrics"][2])
+    planar_g = (g_lab >= 0) & (g_lab < n_planar)
+    planar_w = (w_lab >= 0) & (w_lab < n_planar)
+    touched = sorted({int(x) for x in np.concatenate([g_lab[planar_g],
+                                                      w_lab[planar_w]])})
+
+    def tol_of(r):
+        tol = plane_tolerance(points[want["labels"] == r])
+        if r in touched:
+            moved = points[tuple(cells[(g_lab == r) | (w_lab == r)].T)]
+            tol += float(np.linalg.norm(moved - want["centroids"][r],
+                                        axis=1).sum()) / want["counts"][r]
+        return tol
+
+    fits = [dict(region=r, port_plane=got["planes"][r].tolist(),
+                 golden_plane=want["planes"][r].tolist(),
+                 port_count=int(got["counts"][r]),
+                 golden_count=int(want["counts"][r]),
+                 plane_err=float(np.abs(got["planes"][r]
+                                        - want["planes"][r]).max()),
+                 centroid_err=float(np.abs(got["centroids"][r]
+                                           - want["centroids"][r]).max()),
+                 tolerance=tol_of(r))
+            for r in touched]
+    listed = [[c.tolist(), int(a), int(b)] for c, a, b in zip(cells, g_lab,
+                                                               w_lab)]
+    if len(cells) == 0:
+        return compare_frames(got, want, tol_of), [], []
+    if len(cells) > MAX_FIT_CELLS:
+        bad.append(("labels", f"{len(cells)} cells differ"))
+    if not (planar_g | planar_w).all():
+        bad.append(("labels", "a cell differs outside the planar claims"))
+    for key in ("counts", "cluster_sizes"):
+        if got[key].shape != want[key].shape or \
+                np.abs(got[key] - want[key]).sum() > len(cells):
+            bad.append((key, "moved by more than the differing cells"))
+    relaxed = dict(got, labels=want["labels"], metrics=want["metrics"],
+                   counts=want["counts"], cluster_sizes=want["cluster_sizes"])
+    bad += compare_frames(relaxed, want, tol_of, skip=set(touched))
+    return bad, listed, fits
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    from pcseg_tpu_torch.kernels import build, ccl_gated, epoch_word
-    from pcseg_tpu_torch.models import pipeline
+    from pcseg_tpu_torch import native
+    from pcseg_tpu_torch.kernels import (build, ccl_gated, epoch_word,
+                                         flood_packed)
+    from pcseg_tpu_torch.models import config, pipeline
     from pcseg_tpu_torch.ops import nansafe, unproject
     from pcseg_tpu_torch.utils.synthetic import (
         synthetic_cluttered_room_cloud, synthetic_room_cloud)
+
+    kernels_mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
+                   "flood_packed": flood_packed}
+
+    def reset_counts():
+        for m in kernels_mod.values():
+            m.launches = 0
+
+    def read_counts():
+        return {k: m.launches for k, m in kernels_mod.items()}
 
     # 1. device
     smi = subprocess.run(
@@ -124,8 +303,14 @@ def main():
          cuda=torch.version.cuda)
 
     # 2. build
-    build_s = build.build_all()
-    emit("build", seconds=build_s, dir=os.path.relpath(build.BUILD_DIR, ROOT))
+    t0 = time.perf_counter()
+    kernel_s = build.build_all()
+    hostops = native.load_hostops() is not None
+    emit("build", kernels_seconds=kernel_s,
+         seconds=time.perf_counter() - t0, hostops_loaded=hostops,
+         dir=os.path.relpath(build.BUILD_DIR, ROOT))
+    if not hostops:
+        fail("the host-ops library (g++) did not build or load")
 
     rays = unproject.camera_ray_table(H, W, f=float(H))
     origin = np.zeros(3, np.float32)
@@ -139,55 +324,79 @@ def main():
                for i, (name, u16) in enumerate(scenes.items())}
     rays_d = torch.from_numpy(rays).to(dev)
     origin_d = torch.from_numpy(origin).to(dev)
+    cfg64 = config.SegmenterConfig(
+        planar=config.PlanarRegionConfig(max_regions=64))
     seg = pipeline.Segmenter(device=dev)
     seg_plain = pipeline.Segmenter(device=dev, impl="plain")
+    seg64 = pipeline.Segmenter(cfg64)
+    seg64_plain = pipeline.Segmenter(cfg64, device=dev, impl="plain")
+    segs = {32: (seg, seg_plain), 64: (seg64, seg64_plain)}
 
     def stream(s, name):
         out = s.device_forward_stream(batches[name], rays_d, origin_d)
         torch.cuda.synchronize()
         return out
 
-    # 3. the main path, counted
+    def counted_streams(s, k_cap, phase):
+        reset_counts()
+        outs = {name: stream(s, name) for name in batches}
+        counts = read_counts()
+        for name, (lab, npl, ncl, planes) in outs.items():
+            ok = (lab.shape == (B, H, W) and lab.dtype == torch.uint8
+                  and planes.shape == (B, k_cap, 4)
+                  and bool(nansafe.isfinite(planes).all())
+                  and bool((npl > 0).all()))
+            emit(phase, scene=name, num_planar=npl.tolist(),
+                 num_clusters=ncl.tolist(), ok=ok)
+            if not ok:
+                fail(f"{phase} output on {name} is malformed")
+        emit(phase + "_launches", **counts)
+        return outs, counts
+
+    def check_vs_plain_and_rerun(outs, s, s_plain, phase):
+        for name in batches:
+            a = outs[name]
+            p = stream(s_plain, name)
+            again = stream(s, name)
+            same_plain = (torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])
+                          and torch.equal(a[2], p[2]))
+            plane_err = float((a[3] - p[3]).abs().max())
+            bit_identical = all(torch.equal(x, y) for x, y in zip(a, again))
+            emit(phase, scene=name, labels_counts_equal=same_plain,
+                 planes_max_abs_err=plane_err, atol=PLANE_ATOL,
+                 bit_identical_rerun=bit_identical)
+            if not (same_plain and plane_err <= PLANE_ATOL
+                    and bit_identical):
+                fail(f"{phase} on {name} disagrees (plain or rerun)")
+
+    def kernel_times(fn, *args):
+        return (cuda_ms(torch, lambda: fn(*args)),
+                cuda_ms(torch, lambda: fn(*args, impl="plain")))
+
+    def stream_times(s):
+        out = {}
+        for name in batches:
+            ms = cuda_ms(torch, lambda: s.device_forward_stream(
+                batches[name], rays_d, origin_d))
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                stream(s, name)
+            out[name] = dict(
+                ms_per_batch=ms,
+                host_ms_per_batch=(time.perf_counter() - t0) * 1e3 / REPS,
+                points_per_s=B * H * W / (ms / 1e3))
+        return out
+
+    # 3. the serving path at 32 slots, counted
     stream(seg, "room")  # warm-up (first kernel load)
-    epoch_word.launches = 0
-    ccl_gated.launches = 0
-    main_out = {name: stream(seg, name) for name in batches}
-    counts = {"epoch_word": epoch_word.launches,
-              "ccl_gated": ccl_gated.launches}
-    for name, (lab, npl, ncl, planes) in main_out.items():
-        ok = (lab.shape == (B, H, W) and lab.dtype == torch.uint8
-              and planes.shape == (B, 32, 4)
-              and bool(nansafe.isfinite(planes).all())
-              and bool((npl > 0).all()))
-        emit("main_path", scene=name, num_planar=npl.tolist(),
-             num_clusters=ncl.tolist(), ok=ok)
-        if not ok:
-            fail(f"main path output on {name} is malformed")
-    emit("launches", **counts)
-    for k, n in counts.items():
-        if n <= 0:
+    main_out, counts32 = counted_streams(seg, 32, "main_path")
+    for k in ("epoch_word", "ccl_gated"):
+        if counts32[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
     # 4. epoch kernel vs plain on the first closure epoch's real inputs
-    def capture(module, fn_name, scene):
-        """Arguments of the first call of module.fn_name in a plain run of
-        the stream forward on ``scene``."""
-        seen = []
-        real = getattr(module, fn_name)
-
-        def spy(*args, **kw):
-            if not seen:
-                seen.append(args)
-            return real(*args, **kw)
-
-        setattr(module, fn_name, spy)
-        try:
-            stream(seg_plain, scene)
-        finally:
-            setattr(module, fn_name, real)
-        return seen[0]
-
-    eargs = capture(epoch_word, "epoch_word", "room")
+    eargs = capture(epoch_word, "epoch_word", lambda: stream(seg_plain,
+                                                             "room"))
     got = epoch_word.epoch_word(*eargs)
     want = epoch_word.epoch_word(*eargs, impl="plain")
     torch.cuda.synchronize()
@@ -202,7 +411,8 @@ def main():
         fail("epoch_word disagrees with its plain version")
 
     # 5. CCL kernel vs plain on the cluster stage's real inputs
-    cargs = capture(ccl_gated, "ccl_gated", "cluttered")
+    cargs = capture(ccl_gated, "ccl_gated", lambda: stream(seg_plain,
+                                                           "cluttered"))
     c_got = ccl_gated.ccl_gated(*cargs)
     c_want = ccl_gated.ccl_gated(*cargs, impl="plain")
     torch.cuda.synchronize()
@@ -215,21 +425,9 @@ def main():
         fail("ccl_gated disagrees with its plain version")
 
     # 6. stream forward vs plain, and run-to-run
-    for name in batches:
-        a = main_out[name]
-        p = stream(seg_plain, name)
-        again = stream(seg, name)
-        same_plain = (torch.equal(a[0], p[0]) and torch.equal(a[1], p[1])
-                      and torch.equal(a[2], p[2]))
-        plane_err = float((a[3] - p[3]).abs().max())
-        bit_identical = all(torch.equal(x, y) for x, y in zip(a, again))
-        emit("stream_vs_plain", scene=name, labels_counts_equal=same_plain,
-             planes_max_abs_err=plane_err, atol=PLANE_ATOL,
-             bit_identical_rerun=bit_identical)
-        if not (same_plain and plane_err <= PLANE_ATOL and bit_identical):
-            fail(f"stream forward on {name} disagrees (plain or rerun)")
+    check_vs_plain_and_rerun(main_out, seg, seg_plain, "stream_vs_plain")
 
-    # 7. the committed JAX golden
+    # 7. the committed JAX golden of the stream
     gold = np.load(os.path.join(ROOT, "pcseg_tpu_torch", "testdata",
                                 "jax_stream_128x160.npz"))
     gh, gw = gold["depth"].shape[1:]
@@ -257,42 +455,254 @@ def main():
     if not (lab_ok and worst <= 1.0):
         fail("stream forward disagrees with the committed JAX golden")
 
-    # 8. times
-    e_ms = cuda_ms(torch, lambda: epoch_word.epoch_word(*eargs))
-    e_plain = cuda_ms(torch, lambda: epoch_word.epoch_word(*eargs,
-                                                           impl="plain"))
-    c_ms = cuda_ms(torch, lambda: ccl_gated.ccl_gated(*cargs))
-    c_plain = cuda_ms(torch, lambda: ccl_gated.ccl_gated(*cargs,
-                                                         impl="plain"))
-    times = {}
-    for name in batches:
-        ms = cuda_ms(torch, lambda: seg.device_forward_stream(
-            batches[name], rays_d, origin_d))
-        t0 = time.perf_counter()
-        for _ in range(REPS):
-            stream(seg, name)
-        host_ms = (time.perf_counter() - t0) * 1e3 / REPS
-        times[name] = dict(ms_per_batch=ms, host_ms_per_batch=host_ms,
-                           points_per_s=B * H * W / (ms / 1e3))
+    # 8. times of the 32-slot path (right after its checks, as before the
+    # 64-slot phases existed, so its numbers compare with earlier runs)
+    e_ms, e_plain = kernel_times(epoch_word.epoch_word, *eargs)
+    c_ms, c_plain = kernel_times(ccl_gated.ccl_gated, *cargs)
     emit("times", card=card, epoch_word_ms=e_ms, epoch_word_plain_ms=e_plain,
-         ccl_gated_ms=c_ms, ccl_gated_plain_ms=c_plain, stream=times)
+         ccl_gated_ms=c_ms, ccl_gated_plain_ms=c_plain,
+         stream=stream_times(seg))
 
+    # 9. the serving path at 64 slots, counted
+    stream(seg64, "room")  # warm-up
+    out64, counts64 = counted_streams(seg64, 64, "stream64_path")
+    if counts64["flood_packed"] <= 0 or counts64["ccl_gated"] <= 0 \
+            or counts64["epoch_word"] != 0:
+        fail("the 64-slot path must launch flood_packed and ccl_gated and "
+             f"not epoch_word: {counts64}")
+
+    # 10. flood kernel vs plain on real and constructed inputs
+    fargs = capture(flood_packed, "flood_packed",
+                    lambda: stream(seg64_plain, "cluttered"))
+    f_got = flood_packed.flood_packed(*fargs)
+    f_want = flood_packed.flood_packed(*fargs, impl="plain")
+    torch.cuda.synchronize()
+    f_exact = bool(torch.equal(f_got, f_want))
+    f_err = float((f_got.to(torch.int64) - f_want.to(torch.int64))
+                  .abs().max())
+    rng = np.random.default_rng(9)
+    g9 = rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
+        & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
+        | rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64)
+    g9[:, ::9, :] = 0  # every run <= 8 cells
+    g9[:, :, ::9] = 0
+    s9 = g9 & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
+        & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
+        & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64)
+    g9, s9 = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (g9, s9))
+    m_exact = bool(torch.equal(
+        flood_packed.flood_packed(g9, s9, 64, max_run=9),
+        flood_packed.flood_packed(g9, s9, 64, max_run=9, impl="plain")))
+    # rounds to the fixed point: the least cap that gives the same words
+    lo, hi = 1, fargs[2]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if torch.equal(flood_packed.flood_packed(fargs[0], fargs[1], mid),
+                       f_got):
+            hi = mid
+        else:
+            lo = mid + 1
+    emit("flood_packed_vs_plain", planes=fargs[0].shape[0], exact=f_exact,
+         max_abs_err=f_err, reached_words=int((f_got != 0).sum()),
+         rounds_to_fixed_point=lo, max_run9_exact=m_exact)
+    if not (f_exact and m_exact):
+        fail("flood_packed disagrees with its plain version")
+
+    # 11. 64-slot stream vs plain, and run-to-run
+    check_vs_plain_and_rerun(out64, seg64, seg64_plain, "stream64_vs_plain")
+
+    # 12. the full pipeline at VGA against plain and the JAX golden
+    vga = np.load(os.path.join(ROOT, "pcseg_tpu_torch", "testdata",
+                               "jax_frame_vga.npz"))
+    frame_cases = [("room", 64), ("cluttered", 64), ("cluttered", 32)]
+    frame_counts = {}
+    for scene, k in frame_cases:
+        d16 = scenes[scene]
+        prefix = f"{scene}_k{k}__"
+        if hashlib.sha256(d16.tobytes()).digest() != \
+                vga[prefix + "depth_sha256"].tobytes():
+            fail(f"the {scene} frame differs from the golden's input")
+        s, s_plain = segs[k]
+        s.segment_frame_stream(d16, rays, origin)  # warm-up
+        reset_counts()
+        res = s.segment_frame_stream(d16, rays, origin)
+        torch.cuda.synchronize()
+        frame_counts[f"{scene}_k{k}"] = read_counts()
+        res_plain = s_plain.segment_frame_stream(d16, rays, origin)
+        got_a = pipeline.frame_arrays(res)
+        pts = unproject.unproject_range_np(d16, rays)
+        bad_plain = compare_frames(got_a, pipeline.frame_arrays(res_plain),
+                                   lambda r: PLANE_ATOL)
+        bad_plain += [("objects", "count")] \
+            if len(res.objects) != len(res_plain.objects) else []
+        want = {f[len(prefix):]: vga[f] for f in vga.files
+                if f.startswith(prefix) and not f.endswith("sha256")}
+        bad_gold, cells, fits = golden_mismatches(got_a, want, pts)
+        emit("frame_vs_plain_and_golden", scene=scene, slots=k,
+             metrics=got_a["metrics"].tolist(),
+             cluster_sizes=sorted(got_a["cluster_sizes"].tolist()),
+             plane_class=got_a["plane_class"].tolist(),
+             objects=len(res.objects), launches=frame_counts[
+                 f"{scene}_k{k}"], plain_mismatches=bad_plain,
+             golden_mismatches=bad_gold, golden_cells_differing=cells,
+             fits_involved=fits)
+        if bad_plain or bad_gold:
+            fail(f"segment_frame_stream on {scene} at {k} slots disagrees "
+                 "with its plain run or the JAX golden")
+        need = "flood_packed" if k == 64 else "epoch_word"
+        if frame_counts[f"{scene}_k{k}"][need] <= 0 or \
+                frame_counts[f"{scene}_k{k}"]["ccl_gated"] <= 0:
+            fail(f"segment_frame_stream at {k} slots did not launch {need} "
+                 "and ccl_gated")
+
+    # 13. times of the 64-slot paths and the frames, where the time goes
+    f_ms, f_plain = kernel_times(flood_packed.flood_packed, *fargs)
+    fargs2 = tuple(a[:2].contiguous() if torch.is_tensor(a) else a
+                   for a in fargs)  # frame 0's two word planes
+    f2_ms, f2_plain = kernel_times(flood_packed.flood_packed, *fargs2)
+
+    times64 = stream_times(seg64)
+
+    def frame_times(s, d16):
+        """(device program ms by CUDA events, host finalize ms by the host
+        clock after a synchronise, whole call ms by the host clock)."""
+        pts_d = unproject.unproject_range(torch.from_numpy(d16).to(dev)[None],
+                                          rays_d)
+        dev_ms = cuda_ms(torch, lambda: s._payload(pts_d, origin_d, None,
+                                                   None))
+        pts = unproject.unproject_range_np(d16, rays)
+        host, whole = [], []
+        for _ in range(REPS):
+            payload = s._payload(pts_d, origin_d, None, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s._host_finalize(pts, payload, None,
+                             lambda lab: s._clusters(pts_d, lab))
+            host.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            s.segment_frame_stream(d16, rays, origin)
+            torch.cuda.synchronize()
+            whole.append((time.perf_counter() - t0) * 1e3)
+        return dict(device_ms=dev_ms, host_finalize_ms=statistics.median(host),
+                    whole_ms=statistics.median(whole))
+
+    ftimes = {f"{scene}_k{k}": frame_times(segs[k][0], scenes[scene])
+              for scene, k in frame_cases}
+    emit("times64", card=card, flood_packed_n16_ms=f_ms,
+         flood_packed_n16_plain_ms=f_plain, flood_packed_n2_ms=f2_ms,
+         flood_packed_n2_plain_ms=f2_plain, stream=times64,
+         segment_frame_stream=ftimes)
+
+    stage_profile(torch, card, segs, stream, scenes, rays, origin, pipeline)
+
+    # kernels line: bounds from this run's inputs
+    px_b1 = eargs[0].numel()
+    e_bound = bound(nbytes(*[a for a in eargs if torch.is_tensor(a)])
+                    + nbytes(*got),
+                    # gate distances (3 mul, 3 add, abs per slot and
+                    # pixel) and 6 moment products per member
+                    f32_ops=7 * eargs[6].shape[1] * px_b1
+                    + 6 * int((got[0] != 0).sum()))
+    c_bound = bound(nbytes(cargs[0], cargs[1], c_got))
+    f_bound = bound(nbytes(fargs[0], fargs[1], f_got))
     kernels = [
         dict(name="epoch_word", route="cuda",
              source="pcseg_tpu_torch/csrc/epoch_word.cu",
              replaces="pcseg_tpu/models/planar_batched.py:291",
-             launches=counts["epoch_word"], max_abs_err=mom_err,
-             ms=e_ms, plain_ms=e_plain),
+             launches=counts32["epoch_word"], max_abs_err=mom_err,
+             ms=e_ms, plain_ms=e_plain, bound_ms=e_bound[0],
+             bound_by=e_bound[1], library_ms=None),
         dict(name="ccl_gated", route="cuda",
              source="pcseg_tpu_torch/csrc/ccl_gated.cu",
              replaces="pcseg_tpu/ops/connectivity.py:296",
-             launches=counts["ccl_gated"], max_abs_err=c_err,
-             ms=c_ms, plain_ms=c_plain),
+             launches=counts32["ccl_gated"], max_abs_err=c_err,
+             ms=c_ms, plain_ms=c_plain, bound_ms=c_bound[0],
+             bound_by=c_bound[1], library_ms=None),
+        dict(name="flood_packed", route="cuda",
+             source="pcseg_tpu_torch/csrc/flood_packed.cu",
+             replaces="pcseg_tpu/models/planar_batched.py:133",
+             launches=counts64["flood_packed"], max_abs_err=f_err,
+             ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
+             bound_by=f_bound[1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def stage_profile(torch, card, segs, stream, scenes, rays, origin,
+                  pipeline):
+    """Where the time goes on the cluttered scene, for the stream batch and
+    the full-pipeline frame at 32 and 64 slots: synced wall ms per stage (a
+    sync before and after each wrapped call), then a torch.profiler window
+    (device busy vs wall) of one unsynced call of each."""
+    from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
+    from pcseg_tpu_torch.models import cluster, planar_batched
+    from pcseg_tpu_torch.ops import discontinuity, normals, seeds
+
+    stages = [(normals, "compute_normals_organized"),
+              (seeds, "seeds_from_plane_support"),
+              (planar_batched, "grow_planar_regions_batched"),
+              (epoch_word, "epoch_word"), (flood_packed, "flood_packed"),
+              (cluster, "segment_clusters"), (ccl_gated, "ccl_gated"),
+              (discontinuity, "discontinuity_flags"),
+              (pipeline.Segmenter, "_host_finalize")]
+
+    def synced(run):
+        acc = {name: 0.0 for _, name in stages}
+        real = {}
+        for mod, name in stages:
+            real[name] = getattr(mod, name)
+
+            def wrap(*a, _f=real[name], _n=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _f(*a, **kw)
+                torch.cuda.synchronize()
+                acc[_n] += (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(mod, name, wrap)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            acc["whole call"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            for mod, name in stages:
+                setattr(mod, name, real[name])
+        return acc
+
+    def profiled(run):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        return dict(wall_ms=wall, device_busy_ms=busy,
+                    idle_share=1 - busy / wall if wall else None,
+                    device_events=sum(e.count for e in kernels),
+                    top=[(e.key[:60], e.self_device_time_total / 1e3,
+                          e.count) for e in top])
+
+    d16 = scenes["cluttered"]
+    runs = {}
+    for k, (s, _) in segs.items():
+        runs[f"stream{k}_cluttered"] = lambda s=s: stream(s, "cluttered")
+        runs[f"frame{k}_cluttered"] = lambda s=s: s.segment_frame_stream(
+            d16, rays, origin)
+    for name, run in runs.items():
+        run()
+        emit("stages", path=name, card=card, synced_ms=synced(run),
+             profile=profiled(run))
 
 
 if __name__ == "__main__":

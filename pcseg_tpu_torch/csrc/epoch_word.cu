@@ -23,12 +23,8 @@
 // rounds. The design stops early without a host sync: the column pass of
 // round r raises flags[r] when any word changed, and both passes of round
 // r+1 return at once when flags[r] is clear (the fixed point is stable, so
-// the no-op launches give the same words as stopping). A forward scan
-// followed by a backward scan over its output gives every cell the OR of
-// its whole run; rows are split across the 32 lanes of a warp and columns
-// into 8 segments, so a VGA batch keeps tens of thousands of threads in
-// flight instead of one per row or column (latency, not bandwidth, bound
-// a sequential walk). The
+// the no-op launches give the same words as stopping). The row and column
+// passes live in seg_flood.cuh, shared with flood_packed.cu. The
 // reductions are deterministic (fixed per-thread order, warp shuffles,
 // warps in order, blocks in order; no float atomics): a plane that moved
 // in its last bits from run to run would flip tau-band knife edges in
@@ -37,15 +33,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "seg_flood.cuh"
+
 namespace {
 
 constexpr int kMaxSlots = 32;
 constexpr int kInfRank = 1 << 30;
 constexpr int kBigLin = 1 << 30;
 constexpr long long kInfKey = ((long long)kInfRank << 32) | kBigLin;
-constexpr int kScanThreads = 128;  // 4 rows per block in the row pass
-constexpr int kSegs = 8;           // row segments per column
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPix = 4;  // pixels per thread in the claims pass
@@ -105,138 +100,6 @@ __global__ void epoch_prelude(
   }
   gate[idx] = g;
   reach[idx] = a;
-}
-
-// The scans compose per-cell steps acc = (acc & g) | v. A run of cells
-// composes to acc_out = (acc_in & A) | V with A the AND of its gates and
-// V its result from acc_in = 0, so a row (column) splits into chunks that
-// are summarised in parallel, their carries combined, and rescanned.
-
-// One warp per row: lane l owns a contiguous chunk; carries combine by
-// warp shuffles. The forward pass stores the round's start words.
-__global__ void flood_rows(const unsigned* __restrict__ gate,
-                           unsigned* __restrict__ reach,
-                           unsigned* __restrict__ start,
-                           const int* __restrict__ flags, int round, int rows,
-                           int W) {
-  if (round > 0 && flags[round - 1] == 0) return;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;  // uniform across the warp
-  const size_t base = (size_t)row * W;
-  const int chunk = (W + 31) >> 5;
-  const int c0 = min(W, lane * chunk);
-  const int c1 = min(W, c0 + chunk);
-
-  unsigned A = ~0u, V = 0u;
-  for (int c = c0; c < c1; ++c) {
-    const unsigned g = gate[base + c];
-    const unsigned v = reach[base + c];
-    start[base + c] = v;
-    V = (V & g) | v;
-    A &= g;
-  }
-  for (int d = 1; d < 32; d <<= 1) {  // inclusive scan, left to right
-    const unsigned Ap = __shfl_up_sync(kFull, A, d);
-    const unsigned Vp = __shfl_up_sync(kFull, V, d);
-    if (lane >= d) {
-      V = (Vp & A) | V;
-      A &= Ap;
-    }
-  }
-  unsigned acc = __shfl_up_sync(kFull, V, 1);
-  if (lane == 0) acc = 0u;
-  for (int c = c0; c < c1; ++c) {
-    acc = (acc & gate[base + c]) | reach[base + c];
-    reach[base + c] = acc;
-  }
-
-  // backward over the forward result: every cell gets its whole run
-  A = ~0u;
-  V = 0u;
-  for (int c = c1 - 1; c >= c0; --c) {
-    const unsigned g = gate[base + c];
-    V = (V & g) | reach[base + c];
-    A &= g;
-  }
-  for (int d = 1; d < 32; d <<= 1) {  // inclusive scan, right to left
-    const unsigned Ap = __shfl_down_sync(kFull, A, d);
-    const unsigned Vp = __shfl_down_sync(kFull, V, d);
-    if (lane + d < 32) {
-      V = (Vp & A) | V;
-      A &= Ap;
-    }
-  }
-  acc = __shfl_down_sync(kFull, V, 1);
-  if (lane == 31) acc = 0u;
-  for (int c = c1 - 1; c >= c0; --c) {
-    acc = (acc & gate[base + c]) | reach[base + c];
-    reach[base + c] = acc;
-  }
-}
-
-// Blocks of 32 columns x kSegs row segments: a warp reads 32 neighbouring
-// columns (coalesced); segment carries combine in shared memory. Raises
-// flags[round] when a word differs from the round's start.
-__global__ void flood_cols(const unsigned* __restrict__ gate,
-                           unsigned* __restrict__ reach,
-                           const unsigned* __restrict__ start, int* flags,
-                           int round, int B, int H, int W) {
-  if (round > 0 && flags[round - 1] == 0) return;  // uniform across the grid
-  __shared__ unsigned sA[kSegs][32];
-  __shared__ unsigned sV[kSegs][32];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int t = blockIdx.x * 32 + tx;
-  const bool valid = t < B * W;
-  const int b = valid ? t / W : 0;
-  const int c = valid ? t - b * W : 0;
-  const size_t base = (size_t)b * H * W + c;
-  const int seg = (H + kSegs - 1) / kSegs;
-  const int r0 = valid ? min(H, ty * seg) : 0;
-  const int r1 = valid ? min(H, r0 + seg) : 0;
-
-  unsigned A = ~0u, V = 0u;
-  for (int r = r0; r < r1; ++r) {
-    const size_t i = base + (size_t)r * W;
-    const unsigned g = gate[i];
-    V = (V & g) | reach[i];
-    A &= g;
-  }
-  sA[ty][tx] = A;
-  sV[ty][tx] = V;
-  __syncthreads();
-  unsigned acc = 0u;
-  for (int k = 0; k < ty; ++k) acc = (acc & sA[k][tx]) | sV[k][tx];
-  __syncthreads();
-  for (int r = r0; r < r1; ++r) {
-    const size_t i = base + (size_t)r * W;
-    acc = (acc & gate[i]) | reach[i];
-    reach[i] = acc;
-  }
-
-  A = ~0u;
-  V = 0u;
-  for (int r = r1 - 1; r >= r0; --r) {
-    const size_t i = base + (size_t)r * W;
-    const unsigned g = gate[i];
-    V = (V & g) | reach[i];
-    A &= g;
-  }
-  sA[ty][tx] = A;
-  sV[ty][tx] = V;
-  __syncthreads();
-  acc = 0u;
-  for (int k = kSegs - 1; k > ty; --k) acc = (acc & sA[k][tx]) | sV[k][tx];
-  bool changed = false;
-  for (int r = r1 - 1; r >= r0; --r) {
-    const size_t i = base + (size_t)r * W;
-    acc = (acc & gate[i]) | reach[i];
-    reach[i] = acc;
-    changed |= acc != start[i];
-  }
-  // every writer stores the same value
-  if (changed) flags[round] = 1;
 }
 
 __global__ void epoch_claims_partials(
@@ -418,17 +281,9 @@ extern "C" int epoch_word_launch(
       px, py, pz, elig, reinterpret_cast<const unsigned*>(word_in), srank,
       alive, plane, anchor_r, anchor_c, radius, ugate, ureach, H, W, K, tau);
   PCSEG_CHECK_LAUNCH();
-  const int rows_per_block = kScanThreads / 32;
-  const int row_blocks = (B * H + rows_per_block - 1) / rows_per_block;
-  const int col_blocks = (B * W + 31) / 32;
-  for (int r = 0; r < rounds; ++r) {
-    flood_rows<<<row_blocks, kScanThreads, 0, s>>>(ugate, ureach, ustart,
-                                                   flags, r, B * H, W);
-    PCSEG_CHECK_LAUNCH();
-    flood_cols<<<col_blocks, dim3(32, kSegs), 0, s>>>(ugate, ureach, ustart,
-                                                      flags, r, B, H, W);
-    PCSEG_CHECK_LAUNCH();
-  }
+  const cudaError_t e = seg_flood::flood_rounds(ugate, ureach, ustart, flags,
+                                                rounds, B, H, W, s);
+  if (e != cudaSuccess) return (int)e;
   const int nblk = (hw + kThreads * kPix - 1) / (kThreads * kPix);
   epoch_claims_partials<<<dim3(nblk, B), kThreads, 0, s>>>(
       ureach, px, py, pz, rank, srank, part_mom, part_cnt, part_key, H, W, K,

@@ -4,8 +4,9 @@ ctypes).
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers taking raw device
 pointers, sizes and a stream. It is compiled once, at first use, for
 ``sm_90a`` into ``build/pcseg_tpu_torch/<name>-<hash>.so`` at the root of
-the checkout (listed in ``.gitignore``); the hash covers the source and the
-flags, so an edited source rebuilds. Nothing here runs at import time.
+the checkout (listed in ``.gitignore``); the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds. Nothing here runs at import time.
 
 The flags carry no ``--use_fast_math`` (the plane-distance gates compare
 NaN points) and ``--fmad=false``: every f32 multiply and add rounds on its
@@ -27,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcseg_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("epoch_word", "ccl_gated")
+SOURCES = ("epoch_word", "ccl_gated", "flood_packed")
 
 _loaded: dict = {}
 
@@ -45,9 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

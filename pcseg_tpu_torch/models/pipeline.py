@@ -1,46 +1,90 @@
-"""The device forward of the segmentation pipeline (port of
-pcseg_tpu.models.pipeline: ``device_forward``, ``device_forward_batched``
-and the serving path ``device_forward_stream``).
+"""The segmentation pipeline (port of pcseg_tpu.models.pipeline).
 
-normals -> plane-support seed ranks -> batched planar growth -> euclidean
-cluster closure, with cluster ids following the planar ids. Frames are a
-real batch axis; everything runs on ``device``. The host finalize
-(``segment_frame*``) is not ported yet.
+  * the device forward: ``device_forward``, ``device_forward_batched`` and
+    the serving path ``device_forward_stream`` (normals -> plane-support
+    seed ranks -> batched planar growth -> euclidean cluster closure, with
+    cluster ids following the planar ids; frames are a real batch axis);
+  * the full pipeline of one frame: ``segment_frame`` (f32 points) and
+    ``segment_frame_stream`` (u16 range frame): the device program
+    (growth, clusters on the device labels, the discontinuity flags), then
+    the host finalize (boundary, hull and area gates, classification,
+    clustering again if the finalize rejected a region, detected objects).
+
+Temporal seeds (``prev_regions``) and mean-shift clustering are not ported
+yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import List, NamedTuple, Optional
+
+import numpy as np
 import torch
 
-from pcseg_tpu_torch.models import cluster, planar_batched
-from pcseg_tpu_torch.models.config import UNLABELED, SegmenterConfig
+from pcseg_tpu_torch.models import (boundary, classify, cluster, extract,
+                                    planar_batched)
+from pcseg_tpu_torch.models.config import (
+    SEMANTIC_UNKNOWN, UNLABELED, ClusterMethod, SegmenterConfig)
+from pcseg_tpu_torch.ops import discontinuity
 from pcseg_tpu_torch.ops import normals as normals_op
 from pcseg_tpu_torch.ops import seeds as seeds_op
 from pcseg_tpu_torch.ops import unproject
 
 
+class FrameMetrics(NamedTuple):
+    """Per-stage counters."""
+    num_seeds: int
+    num_device_planar_regions: int
+    num_planar_regions: int
+    num_clusters: int
+    planar_overflow: bool
+
+
+@dataclasses.dataclass
+class FrameResult:
+    labels: np.ndarray                 # [H, W] int32 final label grid
+    # None: the normals stay on the device (the discontinuity stencil, their
+    # only host consumer, runs there)
+    normals: Optional[np.ndarray]
+    planar_regions: List               # boundary.PlanarRegionRecord
+    num_clusters: int
+    cluster_sizes: np.ndarray
+    objects: List[extract.DetectedObject]
+    metrics: FrameMetrics
+    classification_summary: classify.ClassificationDebugSummary
+
+
 class Segmenter:
-    """Stateless device pipeline over organized [B, H, W] clouds.
+    """Stateless pipeline over organized [B, H, W] clouds on ``device``:
+    the CUDA card unless the caller passes ``device="cpu"`` (which the
+    tests do; a CPU run takes every kernel's plain version).
 
     ``impl="plain"`` makes every kernel on the path take its plain PyTorch
     version (for tests and the smoke script's comparisons only)."""
 
     def __init__(self, config: SegmenterConfig = SegmenterConfig(),
-                 device="cpu", impl=None):
+                 device=None, impl=None):
         if config.seed_method != "plane_support":
             raise NotImplementedError("only plane_support seeds are ported")
         if config.planar.growth_mode != "batched":
             raise NotImplementedError("only the batched grower is ported")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: the pipeline runs on the "
+                                   "card; pass device='cpu' to run it on the "
+                                   "CPU")
+            device = "cuda"
         self.config = config
         self.device = torch.device(device)
         self.impl = impl
+        self._rays = None  # (host ray table, its device copy)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def _forward(self, points, sensor_origin, labels0=None, need_sizes=True):
-        """[B, H, W, 3] points -> (final labels, normals, planar regions,
-        cluster result), all batched."""
+    def _planar(self, points, sensor_origin, labels0=None):
+        """[B, H, W, 3] points -> (normals, ranked seeds, planar regions)."""
         cfg = self.config
         b, h, w = points.shape[:3]
         nrm = normals_op.compute_normals_organized(points, sensor_origin,
@@ -53,9 +97,17 @@ class Segmenter:
         dev = planar_batched.grow_planar_regions_batched(
             points, nrm, labels0, ranked.rank_grid, cfg.planar,
             impl=self.impl)
-        cres = cluster.segment_clusters(points, dev.labels, cfg.cluster,
-                                        need_sizes=need_sizes,
-                                        impl=self.impl)
+        return nrm, ranked, dev
+
+    def _clusters(self, points, labels, need_sizes=True):
+        return cluster.segment_clusters(points, labels, self.config.cluster,
+                                        need_sizes=need_sizes, impl=self.impl)
+
+    def _forward(self, points, sensor_origin, labels0=None, need_sizes=True):
+        """[B, H, W, 3] points -> (final labels, normals, planar regions,
+        cluster result), all batched."""
+        nrm, _, dev = self._planar(points, sensor_origin, labels0)
+        cres = self._clusters(points, dev.labels, need_sizes)
         final = torch.where((cres.labels >= 0) & (dev.labels == UNLABELED),
                             cres.labels + dev.num_regions[:, None, None],
                             cres.labels)
@@ -96,6 +148,189 @@ class Segmenter:
             need_sizes=False)
         labels_u8 = torch.where(final >= 0, final, 255).to(torch.uint8)
         return labels_u8, dev.num_regions, cres.num_regions, dev.planes
+
+    # -- full pipeline ------------------------------------------------------
+
+    def _check_full_pipeline(self, prev_regions=None):
+        cfg = self.config
+        if prev_regions:
+            raise NotImplementedError("temporal seeds (prev_regions) are not "
+                                      "ported yet")
+        if cfg.run_clustering and \
+                cfg.cluster.cluster_method == ClusterMethod.MEAN_SHIFT:
+            raise NotImplementedError("mean-shift clustering is not ported "
+                                      "yet")
+
+    def _payload(self, points, sensor_origin, labels0, rot_robot):
+        """The device program of one frame ([1, H, W, 3] points): planar
+        growth, clusters on the device labels (kept when the host finalize
+        accepts every device region), the discontinuity flags. Labels stay
+        int32 (no narrowing for the host link, so cluster ids never
+        wrap)."""
+        cfg = self.config
+        nrm, ranked, dev = self._planar(points, sensor_origin, labels0)
+        rot = self._tensor(np.eye(3, dtype=np.float32) if rot_robot is None
+                           else np.asarray(rot_robot, np.float32))
+        out = dict(
+            dev_labels=dev.labels, planes=dev.planes,
+            centroids=dev.centroids, curvatures=dev.curvatures,
+            counts=dev.counts, seed_indices=dev.seed_indices,
+            num_regions=dev.num_regions, overflow=dev.overflow,
+            num_seeds=(ranked.rank_grid < seeds_op.SEED_RANK_INF)
+            .sum(dim=(1, 2)),
+            disc=discontinuity.discontinuity_flags(points, nrm, dev.labels,
+                                                   rot, cfg.planar))
+        if cfg.run_clustering:
+            cres = self._clusters(points, dev.labels)
+            out.update(cres_labels=cres.labels, cres_num=cres.num_regions,
+                       cres_sizes=cres.region_sizes)
+        return out
+
+    def segment_frame(self, points, sensor_origin,
+                      rot_robot: Optional[np.ndarray] = None,
+                      prev_regions: Optional[List] = None,
+                      input_mask: Optional[np.ndarray] = None) -> FrameResult:
+        """Full pipeline on one [H, W, 3] f32 frame.
+
+        ``rot_robot``: optional 3x3 robot-frame rotation for the
+        discontinuity z checks. ``input_mask``: optional [H, W] int32
+        initial label grid carrying MASKED_EGO / MASKED_OUT sentinels
+        (segmentation.h:36-45); masked cells are never claimed and survive
+        into the output. ``prev_regions`` (temporal seeds) is not ported
+        yet."""
+        self._check_full_pipeline(prev_regions)
+        points_np = np.asarray(points, np.float32)
+        pts = self._tensor(points_np)[None]
+        labels0 = None if input_mask is None else \
+            self._tensor(input_mask, torch.int32)[None]
+        payload = self._payload(pts, self._tensor(sensor_origin,
+                                                  torch.float32),
+                                labels0, rot_robot)
+        return self._host_finalize(points_np, payload, rot_robot,
+                                   lambda labels: self._clusters(pts, labels))
+
+    def segment_frame_stream(self, depth_u16, rays, sensor_origin,
+                             depth_scale: float = None,
+                             rot_robot: Optional[np.ndarray] = None
+                             ) -> FrameResult:
+        """Full pipeline from one [H, W] u16 range frame: the device
+        unprojects it against ``rays`` [H, W, 3] (kept on the device between
+        calls with the same table) and the host rebuilds the identical f32
+        points (``unproject_range_np``, the same IEEE multiply chain). Same
+        result contract as :meth:`segment_frame`."""
+        self._check_full_pipeline()
+        if depth_scale is None:
+            depth_scale = unproject.DEFAULT_DEPTH_SCALE
+        if self._rays is None or self._rays[0] is not rays:
+            self._rays = (rays, self._tensor(rays, torch.float32))
+        depth_np = np.asarray(depth_u16)
+        pts = unproject.unproject_range(self._tensor(depth_np)[None],
+                                        self._rays[1], depth_scale)
+        payload = self._payload(pts, self._tensor(sensor_origin,
+                                                  torch.float32),
+                                None, rot_robot)
+        points_np = unproject.unproject_range_np(
+            depth_np, np.asarray(rays, np.float32), float(depth_scale))
+        return self._host_finalize(points_np, payload, rot_robot,
+                                   lambda labels: self._clusters(pts, labels))
+
+    def _host_finalize(self, points_np, payload, rot_robot, recluster):
+        """Host half of one frame: ``payload`` is :meth:`_payload`'s dict
+        (frame axis of 1); ``recluster`` runs the cluster stage on the
+        device for a corrected [1, H, W] int32 label grid."""
+        cfg = self.config
+        host = {k: v[0].cpu().numpy() for k, v in payload.items()}
+        dev = planar_batched.PlanarRegions(
+            labels=host["dev_labels"], num_regions=host["num_regions"],
+            planes=host["planes"], centroids=host["centroids"],
+            curvatures=host["curvatures"], counts=host["counts"],
+            seed_indices=host["seed_indices"], moments=None,
+            overflow=host["overflow"])
+        labels, records = boundary.finalize_planar_regions(
+            points_np, None, dev, cfg.planar, 0, rot_robot,
+            disc_flags=host["disc"])
+        summary = classify.ClassificationDebugSummary()
+        classify.classify_regions(records, cfg.classification,
+                                  cfg.up_direction, cfg.known_floor_point,
+                                  summary)
+
+        num_planar = len(records)
+        num_clusters = 0
+        cluster_sizes = np.zeros((0,), np.int32)
+        labels_final = labels
+        if cfg.run_clustering:
+            cl, num_clusters, sizes = (host["cres_labels"],
+                                       int(host["cres_num"]),
+                                       host["cres_sizes"])
+            if num_planar != int(dev.num_regions):
+                # the finalize rejected a device-accepted region: its cells
+                # reverted to UNLABELED and are clusterable (the reference's
+                # quarantine-then-reset), so cluster the corrected grid
+                c2 = recluster(self._tensor(labels, torch.int32)[None])
+                cl = c2.labels[0].cpu().numpy()
+                num_clusters = int(c2.num_regions[0])
+                sizes = c2.region_sizes[0].cpu().numpy()
+            # cluster ids follow the planar ids
+            mask = (cl >= 0) & (labels == UNLABELED)
+            labels_final = labels.copy()
+            labels_final[mask] = cl[mask] + num_planar
+            cluster_sizes = sizes[:num_clusters]
+
+        objects: List[extract.DetectedObject] = []
+        indexer = extract.RegionIndexer(labels_final) \
+            if (records or num_clusters) else None
+        for rec in records:
+            objects.append(extract.planar_detected_object_from_labels(
+                points_np, labels_final, rec, indexer=indexer))
+        for cid in range(num_clusters):
+            objects.append(extract.cluster_detected_object(
+                points_np, labels_final, num_planar + cid,
+                SEMANTIC_UNKNOWN, indexer=indexer))
+
+        metrics = FrameMetrics(
+            num_seeds=int(host["num_seeds"]),
+            num_device_planar_regions=int(dev.num_regions),
+            num_planar_regions=num_planar,
+            num_clusters=num_clusters,
+            planar_overflow=bool(dev.overflow))
+        return FrameResult(labels=labels_final, normals=None,
+                           planar_regions=records,
+                           num_clusters=num_clusters,
+                           cluster_sizes=cluster_sizes,
+                           objects=objects, metrics=metrics,
+                           classification_summary=summary)
+
+
+def frame_arrays(result) -> dict:
+    """A FrameResult (of either package) as flat numpy arrays, the form
+    the JAX goldens are stored in: the label grid, the metrics, the cluster
+    sizes and the planar record table, with each record's boundary and its
+    sorted discontinuous indices concatenated (lengths in ``*_len``)."""
+    recs = result.planar_regions
+
+    def cat(lists):
+        return np.asarray([i for seq in lists for i in seq], np.int32)
+
+    def table(field, dtype, width=None):
+        vals = np.asarray([np.asarray(getattr(r, field)) for r in recs], dtype)
+        return vals if width is None else vals.reshape(-1, width)
+
+    return dict(
+        labels=np.asarray(result.labels, np.int32),
+        metrics=np.asarray(tuple(result.metrics), np.int64),
+        cluster_sizes=np.asarray(result.cluster_sizes, np.int32),
+        planes=table("plane", np.float32, 4),
+        centroids=table("centroid", np.float32, 3),
+        counts=table("count", np.int32),
+        areas=table("area", np.float64),
+        plane_class=table("plane_class", np.int32),
+        seed_indices=table("seed_point_index", np.int32),
+        boundary=cat(r.boundary_indices for r in recs),
+        boundary_len=np.asarray([len(r.boundary_indices) for r in recs],
+                                np.int32),
+        disc=cat(sorted(r.discontinuous_boundary_indices) for r in recs),
+        disc_len=np.asarray([len(r.discontinuous_boundary_indices)
+                             for r in recs], np.int32))
 
 
 def _first(x):

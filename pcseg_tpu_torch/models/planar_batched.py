@@ -13,10 +13,14 @@ module for the full semantics map to segmentation.h / planar_region.h).
     (``stage_a_patched``); below that on the full grid
     (``generation``/``settle``) — the same switch as JAX.
   * Stage B: closure epochs under Chebyshev boxes growing by 4/3 per
-    epoch, then unboxed epochs; each epoch is one call of the epoch kernel
-    (kernels/epoch_word.py) on the packed member word. A frame freezes once
-    an unboxed epoch leaves its word unchanged (JAX's while_loop under
-    vmap); frozen frames keep their state while the others go on.
+    epoch, then unboxed epochs. With K <= 32 each epoch is one call of the
+    epoch kernel (kernels/epoch_word.py) on the packed member word, as JAX
+    runs it on a TPU; with K > 32 (more slots than a word has bits) each
+    epoch builds the slots' gates, floods them from the anchors on packed
+    word planes (kernels/flood_packed.py) and settles the claims, as JAX's
+    ``epoch``. A frame freezes once an unboxed epoch leaves its members
+    unchanged (JAX's while_loop under vmap); frozen frames keep their state
+    while the others go on.
   * Tail: degenerate (collinear) slots dissolve into an adjacent robust
     slot covering >= 90% of their members; final claims, acceptance and
     dense ids in rank order.
@@ -30,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from pcseg_tpu_torch.kernels import epoch_word
+from pcseg_tpu_torch.kernels import epoch_word, flood_packed
 from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import UNLABELED, PlanarRegionConfig
 from pcseg_tpu_torch.ops import geom, nansafe, plane_fit
@@ -99,21 +103,6 @@ def rank_grid_from_seed_vector(seed_indices, seed_valid, h, w):
     return flat_cm.reshape(b, w, h).transpose(1, 2).contiguous()
 
 
-def _pack_word(members):
-    """[B, K, H, W] bool -> [B, H, W] int32 word (bit k = slot k)."""
-    acc = torch.zeros(members.shape[:1] + members.shape[2:],
-                      dtype=torch.int64, device=members.device)
-    for k in range(members.shape[1]):
-        acc |= members[:, k].to(torch.int64) << k
-    return torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc).to(torch.int32)
-
-
-def _unpack_word(word, k_cap):
-    """[B, H, W] int32 word -> [B, K, H, W] bool."""
-    ks = torch.arange(k_cap, dtype=torch.int32, device=word.device)
-    return ((word[:, None] >> ks[None, :, None, None]) & 1) == 1
-
-
 def _dilate4(m):
     """The 4-neighbourhood ring around bool masks [..., H, W]."""
     return (shift2(m, 1, 0, False) | shift2(m, -1, 0, False)
@@ -153,8 +142,8 @@ def grow_planar_regions_batched(
         impl=None) -> PlanarRegions:
     """Batched planar growth over [B, H, W, 3] points/normals, [B, H, W]
     int32 input labels and the [B, H, W] int32 seed rank grid
-    (ops/seeds.py). ``impl="plain"`` forces the epoch kernel's plain
-    version (tests and the smoke script only)."""
+    (ops/seeds.py). ``impl="plain"`` forces the epoch and flood kernels'
+    plain versions (tests and the smoke script only)."""
     b, h, w = points.shape[:3]
     hw = h * w
     dev = points.device
@@ -162,8 +151,6 @@ def grow_planar_regions_batched(
     k_cap = config.max_regions
     tau = config.max_plane_distance
     period = int(config.plane_model_reestimation_period)
-    if k_cap > 32:
-        raise NotImplementedError("the epoch kernel takes <= 32 slots")
     bidx = torch.arange(b, device=dev)[:, None]
 
     finite_pts = nansafe.all_finite(points)
@@ -317,23 +304,54 @@ def grow_planar_regions_batched(
         _, sol = refit_moments(slots)
         return apply_refit(slots, counts, sol)
 
-    def generation(slots):
-        covered = slots.members.any(dim=1)
-        newly, new_seed, new_rank = pick_founders(slots, covered)
+    def assign(slots):
+        """Founders for the dead slots; a new founder's members are its
+        one-hot."""
+        newly, new_seed, new_rank = pick_founders(slots,
+                                                  slots.members.any(dim=1))
         slots = found(slots, newly, new_seed, new_rank)
-        slots = slots._replace(members=_where(newly, onehot(new_seed),
-                                              slots.members))
+        return slots._replace(members=_where(newly, onehot(new_seed),
+                                             slots.members))
+
+    def slot_gate(slots):
+        """[B, K, H, W] inlier gates: within tau of the slot's plane,
+        eligible, not claimed by a better-ranked slot, slot alive; members
+        always pass (membership is monotone)."""
         members = slots.members
         claim_rank = torch.where(members, slots.rank[..., None, None],
                                  INF_RANK).amin(dim=1)
         dist = _plane_dist(slots.plane, px[:, None], py[:, None], pz[:, None])
-        gate = ((dist < tau) & eligible0[:, None]
+        return ((dist < tau) & eligible0[:, None]
                 & (claim_rank[:, None] >= slots.rank[..., None, None])
                 & slots.alive[..., None, None]) | members
-        m = (members | onehot(slots.seed_idx)) & gate
+
+    def generation(slots):
+        slots = assign(slots)
+        gate = slot_gate(slots)
+        m = (slots.members | onehot(slots.seed_idx)) & gate
         for _ in range(STAGE_A_RINGS):
             m = m | (_dilate4(m) & gate)
         return settle(slots, m)
+
+    def flood_epoch(slots, radius):
+        """One closure epoch for K > 32 (JAX's ``epoch``): the gates cut
+        to the Chebyshev box of ``radius`` around each anchor (members
+        always pass), flooded from the anchors on packed word planes, then
+        settled."""
+        slots = assign(slots)
+        ar = (slots.seed_idx % h)[..., None, None]
+        ac = (slots.seed_idx // h).clamp(0, w - 1)[..., None, None]
+        inbox = ((rows_g - ar).abs() <= radius) & ((cols_g - ac).abs()
+                                                   <= radius)
+        gate = slot_gate(slots) & (inbox | slots.members)
+        src = onehot(slots.seed_idx) & gate
+        nw = -(-k_cap // 32)
+        reach = flood_packed.flood_packed(
+            flood_packed.pack_bits(gate).reshape(b * nw, h, w),
+            flood_packed.pack_bits(src).reshape(b * nw, h, w), FLOOD_ROUNDS,
+            impl=impl)
+        return settle(slots, flood_packed.unpack_bits(
+            reach.reshape(b, nw, h, w), k_cap))
 
     # --- patched stage A (grids >= 64x64 and >= 4 patches) ---------------
     span = STAGE_A_GENS * STAGE_A_RINGS
@@ -440,18 +458,30 @@ def grow_planar_regions_batched(
         for _ in range(STAGE_A_GENS):
             slots = generation(slots)
 
-    # --- stage B: word-mode closure epochs -------------------------------
+    # --- stage B: closure epochs ------------------------------------------
     radius = 2 * span
     radii = []
     while radius < max(h, w):
         radii.append(radius)
         radius = (radius * 4) // 3
     radii += [max(h, w)] * (CLOSURE_EPOCHS + 1)
-    slots = run_word_epochs(
-        slots, radii, points=points, rank_grid=rank_grid,
-        eligible0=eligible0, pick_founders=pick_founders, found=found,
-        reanchor=reanchor, solve_with_hint=solve_with_hint,
-        apply_refit=apply_refit, tau=tau, impl=impl)
+    if k_cap <= 32:
+        slots = run_word_epochs(
+            slots, radii, points=points, rank_grid=rank_grid,
+            eligible0=eligible0, pick_founders=pick_founders, found=found,
+            reanchor=reanchor, solve_with_hint=solve_with_hint,
+            apply_refit=apply_refit, tau=tau, impl=impl)
+    else:
+        first_full = _first_full(radii, h, w)
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        for i, radius in enumerate(radii):
+            if i > 0 and not bool(active.any()):
+                break
+            new = flood_epoch(slots, radius)
+            stable = (new.members == slots.members).flatten(1).all(dim=1)
+            slots = _select_frames(active, new, slots)
+            if i >= first_full:
+                active = active & ~stable
 
     # --- degenerate-attempt resolution -----------------------------------
     _, sol_r = refit_moments(slots)
@@ -525,6 +555,13 @@ def grow_planar_regions_batched(
         .any(dim=(1, 2)))
 
 
+def _first_full(radii, h, w):
+    """Index of the first unboxed epoch: from there on a frame whose
+    members an epoch leaves unchanged stops."""
+    return next((j for j, r in enumerate(radii) if r >= max(h, w)),
+                len(radii) - 1)
+
+
 def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
                     pick_founders, found, reanchor,
                     solve_with_hint, apply_refit, tau, impl):
@@ -540,11 +577,9 @@ def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
     kbits = torch.tensor([(1 << k) - (1 << 32 if k == 31 else 0)
                           for k in range(k_cap)], dtype=torch.int32,
                          device=dev)
-    word = _pack_word(slots.members)
+    word = flood_packed.pack_bits(slots.members)[:, 0]
     slots = slots._replace(members=None)
-    n_ep = len(radii)
-    first_full = next((j for j, r in enumerate(radii) if r >= max(h, w)),
-                      n_ep - 1)
+    first_full = _first_full(radii, h, w)
     active = torch.ones(b, dtype=torch.bool, device=dev)
     for i, radius in enumerate(radii):
         if i > 0 and not bool(active.any()):
@@ -583,4 +618,5 @@ def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
         if i >= first_full:
             stable = (word == prev_word).all(dim=2).all(dim=1)
             active = active & ~stable
-    return slots._replace(members=_unpack_word(word, k_cap))
+    return slots._replace(members=flood_packed.unpack_bits(word[:, None],
+                                                           k_cap))

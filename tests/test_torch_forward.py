@@ -53,7 +53,8 @@ def test_forward_batched_with_cluster_sizes():
     origins = np.zeros((2, 3), np.float32)
     want = jpipeline.Segmenter().device_forward_batched(
         jnp.asarray(pts), jnp.asarray(origins))
-    got = pipeline.Segmenter().device_forward_batched(pts, origins)
+    got = pipeline.Segmenter(device="cpu").device_forward_batched(
+        pts, origins)
     compare(got, want, pts, batched=True)
     sizes = got[3].region_sizes.numpy()
     assert (got[3].num_regions.numpy() >= 1).all() and sizes.max() >= 7
@@ -82,7 +83,7 @@ def test_device_forward_edge_probes(name):
     origin = np.zeros(3, np.float32)
     want = jpipeline.Segmenter().device_forward(jnp.asarray(pts),
                                                 jnp.asarray(origin))
-    got = pipeline.Segmenter().device_forward(pts, origin)
+    got = pipeline.Segmenter(device="cpu").device_forward(pts, origin)
     compare(got, want, pts, batched=False)
     if name in ("tiny", "small_plane"):
         assert int(got[3].num_regions) == 1

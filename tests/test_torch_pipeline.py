@@ -54,11 +54,9 @@ def jax_128x160():
 
 def check_stream(want, rays, expect_planar, expect_clusters):
     depth = want["depth"]
-    labels, npl, ncl, planes = (o.numpy() for o in
-                                pipeline.Segmenter().device_forward_stream(
-                                    torch.from_numpy(depth),
-                                    torch.from_numpy(rays),
-                                    torch.zeros(3)))
+    seg = pipeline.Segmenter(device="cpu")
+    labels, npl, ncl, planes = (o.numpy() for o in seg.device_forward_stream(
+        torch.from_numpy(depth), torch.from_numpy(rays), torch.zeros(3)))
     assert labels.dtype == np.uint8
     np.testing.assert_array_equal(npl, want["num_planar"])
     np.testing.assert_array_equal(ncl, want["num_clusters"])
