@@ -51,13 +51,12 @@ def seg_min_scan(v, blocked, dim, reverse, big):
     return v
 
 
-def seg_or_scan(v, blocked, dim, reverse, max_run=None):
+def seg_or_scan(v, blocked, dim, reverse):
     """Segmented inclusive OR-scan on packed int32 bit words; ``blocked``
-    is a word too (bit set = that bit's run is cut). ``max_run`` stops the
-    doubling there instead of at the axis length (JAX's bounded scan)."""
+    is a word too (bit set = that bit's run is cut)."""
     b = blocked
     d = 1
-    n = v.shape[dim] if max_run is None else min(v.shape[dim], max_run)
+    n = v.shape[dim]
     while d < n:
         s = -d if reverse else d
         vs = _shift_dim(v, s, dim, 0)

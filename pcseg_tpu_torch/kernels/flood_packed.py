@@ -35,13 +35,20 @@ def _lib():
 
 def pack_bits(masks: torch.Tensor) -> torch.Tensor:
     """[B, K, H, W] bool -> [B, NW, H, W] int32 word planes, NW =
-    ceil(K/32): bit k % 32 of word k // 32 is slot k (int64 accumulation,
-    so bit 31 lands on the sign without overflow)."""
+    ceil(K/32): bit k % 32 of word k // 32 is slot k. Eight slots sum into
+    a byte (distinct bits, so no carry), four bytes into an int64 word, so
+    bit 31 lands on the sign without overflow; a fixed number of ops for
+    any K."""
     b, k, h, w = masks.shape
-    acc = torch.zeros((b, -(-k // 32), h, w), dtype=torch.int64,
-                      device=masks.device)
-    for j in range(k):
-        acc[:, j // 32] |= masks[:, j].to(torch.int64) << (j % 32)
+    nw = -(-k // 32)
+    dev = masks.device
+    bits = torch.zeros((b, nw * 32, h, w), dtype=torch.uint8, device=dev)
+    bits[:, :k] = masks
+    bytes_ = (bits.view(b, nw * 4, 8, h, w)
+              << torch.arange(8, dtype=torch.uint8, device=dev)[:, None, None]
+              ).sum(dim=2, dtype=torch.uint8)
+    acc = (bytes_.view(b, nw, 4, h, w).to(torch.int64)
+           << (8 * torch.arange(4, device=dev))[:, None, None]).sum(dim=2)
     return torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc).to(torch.int32)
 
 
@@ -52,14 +59,15 @@ def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
         None, :, None, None]) & 1) == 1
 
 
-def flood_packed_plain(gate, reach0, rounds, max_run=None):
-    """Plain PyTorch version: JAX's bounded Hillis-Steele doubling scans
-    (``_seg_or_scan_packed``) and while-loop round structure."""
+def flood_packed_plain(gate, reach0, rounds):
+    """Plain PyTorch version: JAX's Hillis-Steele doubling scans
+    (``_seg_or_scan_packed``) over whole axes and its while-loop round
+    structure."""
     not_g = ~gate
 
     def spread(r, dim):
-        fwd = common.seg_or_scan(r, not_g, dim, False, max_run)
-        bwd = common.seg_or_scan(r, not_g, dim, True, max_run)
+        fwd = common.seg_or_scan(r, not_g, dim, False)
+        bwd = common.seg_or_scan(r, not_g, dim, True)
         return (fwd | bwd) & gate
 
     def one_round(r):
@@ -74,14 +82,13 @@ def flood_packed_plain(gate, reach0, rounds, max_run=None):
 
 
 def flood_packed(gate_words: torch.Tensor, reach0_words: torch.Tensor,
-                 rounds: int, max_run=None, impl=None) -> torch.Tensor:
+                 rounds: int, impl=None) -> torch.Tensor:
     """Flood the set bits of ``reach0_words`` through ``gate_words``, both
     int32 [N, H, W] word planes; returns the reached words.
 
-    ``max_run`` is the caller's promise that no run of gate bits along a
-    row or column is longer: the plain version then stops its doubling
-    scans there, as JAX's kernel does, while the CUDA kernel scans whole
-    runs. The two agree whenever the promise holds.
+    Both versions scan whole runs of gate bits. JAX's kernel takes a
+    ``max_run`` bound on its doubling scans, which only its own tests
+    pass; where no run is longer than that bound, its words equal these.
 
     CPU tensors (or ``impl="plain"``) take the plain version; CUDA tensors
     launch the kernel."""
@@ -95,7 +102,7 @@ def flood_packed(gate_words: torch.Tensor, reach0_words: torch.Tensor,
     common.check("reach0_words", reach0_words, torch.int32, (n, h, w),
                  gate_words.device)
     if not common.use_kernel(gate_words.device, impl):
-        return flood_packed_plain(gate_words, reach0_words, rounds, max_run)
+        return flood_packed_plain(gate_words, reach0_words, rounds)
     out = reach0_words.clone()
     start = torch.empty_like(out)
     flags = torch.zeros(max(rounds, 1), dtype=torch.int32,
