@@ -7,16 +7,22 @@ Phases (each prints one JSON line; any failure exits nonzero without the
 final result line):
   1. device: the card's name and power limit; TF32 off;
   2. build: the three CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
-     each, started together) and the host-ops library (g++), which must
-     load;
+     each, started together, with ptxas' report of each kernel's
+     registers, shared memory and spills) and the host-ops library (g++),
+     which must load;
   3. the serving path at 32 slots, ``Segmenter.device_forward_stream`` at
      VGA (480x640), batch 8, on the room and the cluttered scenes, with
      every launch counter set to 0 just before and read just after; the
      epoch and CCL kernels must have launched;
   4. the epoch kernel (B1) against its plain PyTorch version on real inputs
      of that path (the first closure epoch's state, captured from a plain
-     run): words, counts, ranks and indices exact, moments within the
-     stated tolerance;
+     run) at flood caps 1, 2 and 64, and on a VGA staircase of member bits
+     whose flood needs ~470 rounds (the cap binds at 64), and on frames
+     whose strips (1920 rows) or rows (38,400 columns) do not fit in
+     shared memory: words, counts, ranks, indices and the flood rounds
+     each frame ran exact, moments within the stated tolerance; a
+     torch.profiler window counts the device kernels per call (must be
+     one);
   5. the CCL kernel (B2) against its plain version on the cluster stage's
      real inputs (captured the same way, cluttered scene): exact;
   6. the stream forward against its ``impl="plain"`` run (labels and
@@ -25,16 +31,24 @@ final result line):
   7. the committed JAX golden at 128x160 (cluttered scene, seed 5, B=2):
      labels and counts exact, planes within the conditioning-aware
      tolerance of the CPU tests (PLANE_ATOL for well-conditioned fits);
-  8. times of that path: CUDA-event medians of B1 and B2 against their
-     plain versions and the stream's ms/batch and points/s (taken here,
-     before the 64-slot phases, so they compare with earlier runs);
+  8. times of that path: CUDA-event medians of B1 (also on the staircase)
+     and B2, of a single call (as earlier runs timed them; the kernels
+     line's ``ms``) and per call over 10 back-to-back calls
+     (``ms_per_call_of_10``), against their plain versions, and the
+     stream's ms/batch and points/s (taken here, before the 64-slot
+     phases, so they compare with earlier runs);
   9. the serving path at 64 slots (flood epochs), same batches, counted
      like phase 3: the flood and CCL kernels must launch, the epoch kernel
      must not;
  10. the flood kernel (B3) against its plain version: exact on the first
-     flood of a plain 64-slot run (cluttered scene, N = 16 word planes),
-     and on a constructed stack whose gate runs are all <= 8 cells;
-     the rounds that flood needs to its fixed point;
+     flood of a plain 64-slot run (cluttered scene, N = 16 word planes) at
+     caps 1, 2 and 64, on a constructed stack whose gate runs are all <= 8
+     cells, and on a VGA stack of staircases whose planes reach their fixed
+     points after 94 to 469 rounds (caps 64 and 600), and on the real
+     words laid out as planes past shared memory (1920 rows, 38,400
+     columns); the rounds each plane ran equal the plain version's, and on
+     the staircases its rounds to the fixed point plus one, or the cap; one
+     device kernel per call, as in phase 4;
  11. the 64-slot stream against its plain run and a rerun, as phase 6;
  12. the full pipeline, ``segment_frame_stream``, one VGA frame per case
      (room and cluttered at 64 slots, cluttered at 32), counted like phase
@@ -43,10 +57,11 @@ final result line):
      planar-region and cluster counts exact; labels, cluster sizes,
      classes and boundary sets exact except for the known tau-band cells
      of GOLDEN_CELLS, which the phase lists with the fits involved);
- 13. times: B3 against its plain version at N = 16 and N = 2, the 64-slot
-     stream, ``segment_frame_stream`` ms/frame split into the device
-     program and the host finalize, synced stage times and a
-     torch.profiler window of the cluttered scene's paths.
+ 13. times: B3 against its plain version at N = 16 and N = 2 and on the
+     staircases at cap 64, as in phase 8; the 64-slot stream,
+     ``segment_frame_stream`` ms/frame split into the device program and
+     the host finalize, synced stage times and a torch.profiler window of
+     the cluttered scene's paths.
 
 The line before the last lists the kernels with their bounds; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card, the CUDA
@@ -121,8 +136,11 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(torch, fn, reps=REPS):
-    """Median CUDA-event time of ``fn`` in ms after one warm-up call."""
+def cuda_ms(torch, fn, reps=REPS, calls=1):
+    """Median CUDA-event time of ``fn`` in ms after one warm-up call: events
+    around ``calls`` back-to-back calls, divided by ``calls``. One call
+    also counts the host's work before its first launch; many calls hide
+    it behind the device's."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -130,10 +148,11 @@ def cuda_ms(torch, fn, reps=REPS):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(calls):
+            fn()
         e.record()
         torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / calls)
     return statistics.median(times)
 
 
@@ -209,6 +228,69 @@ def compare_frames(got, want, tol_of, skip=()):
             if r not in skip and not np.array_equal(a, b):
                 bad.append((key, f"region {r}"))
     return bad
+
+
+def staircase_words(lengths, h=H, w=W):
+    """int32 [N, H, W] gate and source words of N = len(lengths) planes:
+    each of the 32 bits of plane p carries a one-cell staircase (i, c0 + i)
+    -> (i, c0 + i + 1) -> (i + 1, c0 + i + 1) ... of lengths[p] diagonal
+    cells from column c0 = 4 * bit, sourced at its first cell. A flood
+    gains one step a round, so plane p reaches its fixed point after
+    lengths[p] - 1 rounds."""
+    gate = np.zeros((len(lengths), h, w), np.int64)
+    src = np.zeros_like(gate)
+    for p, n in enumerate(lengths):
+        i = np.arange(n)
+        for bit in range(32):
+            c0 = 4 * bit
+            gate[p, i, c0 + i] |= 1 << bit
+            gate[p, i[:-1], c0 + i[:-1] + 1] |= 1 << bit
+            src[p, 0, c0] |= 1 << bit
+    return gate.astype(np.int32), src.astype(np.int32)
+
+
+def reframe_epoch(args, b, h, w):
+    """Closure-epoch arguments of the first ``b`` frames with their grids
+    laid out as [b, h, w] (h * w must be the pixels of a frame) and each
+    anchor moved with its pixel: the same pixels in a taller or wider
+    frame."""
+    out = list(args)
+    w0 = args[0].shape[2]
+    for i in range(6):  # px, py, pz, rank, elig, word
+        out[i] = args[i][:b].reshape(b, h, w)
+    for i in (6, 7, 8, 11):  # srank, alive, plane, radius
+        out[i] = args[i][:b].contiguous()
+    lin = args[9][:b] * w0 + args[10][:b]
+    out[9], out[10] = lin // w, lin % w
+    return tuple(out)
+
+
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                "cuMemcpy", "cuMemset")
+
+
+def kernels_per_call(torch, fn, calls=5):
+    """Device work per call of ``fn`` over a short torch.profiler window:
+    (device events per call, runtime calls that put work on the device per
+    call, their names). Kernels, copies and fills all count; the
+    profiler's own buffer requests do not. The device events are CUPTI's
+    records, which a window can drop; the runtime calls are the host's."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    device = [e for e in averages if e.device_type.name == "CUDA"
+              and not e.key.startswith("Activity Buffer")]
+    host = [e for e in averages if e.device_type.name == "CPU"
+            and e.key.startswith(LAUNCH_CALLS)]
+    return (sum(e.count for e in device) / calls,
+            sum(e.count for e in host) / calls,
+            sorted(e.key[:60] for e in device + host))
 
 
 def golden_mismatches(got, want, points, known_cells):
@@ -313,11 +395,11 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    kernel_s = build.build_all()
+    kernel_s, ptxas = build.build_all()
     hostops = native.load_hostops() is not None
     emit("build", kernels_seconds=kernel_s,
          seconds=time.perf_counter() - t0, hostops_loaded=hostops,
-         dir=os.path.relpath(build.BUILD_DIR, ROOT))
+         dir=os.path.relpath(build.BUILD_DIR, ROOT), ptxas=ptxas)
     if not hostops:
         fail("the host-ops library (g++) did not build or load")
 
@@ -379,7 +461,10 @@ def main():
                 fail(f"{phase} on {name} disagrees (plain or rerun)")
 
     def kernel_times(fn, *args):
+        """(kernel ms of a single call, as earlier runs timed it, kernel ms
+        per call over 10 back-to-back calls, plain ms of a single call)."""
         return (cuda_ms(torch, lambda: fn(*args)),
+                cuda_ms(torch, lambda: fn(*args), calls=10),
                 cuda_ms(torch, lambda: fn(*args, impl="plain")))
 
     def stream_times(s):
@@ -403,21 +488,62 @@ def main():
         if counts32[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
-    # 4. epoch kernel vs plain on the first closure epoch's real inputs
+    # 4. epoch kernel vs plain on the first closure epoch's real inputs at
+    # three flood caps, and on a staircase of member bits where the cap
+    # binds (dead slots, so the gate is the member bits; anchors at the
+    # staircases' first cells)
     eargs = capture(epoch_word, "epoch_word", lambda: stream(seg_plain,
                                                              "room"))
-    got = epoch_word.epoch_word(*eargs)
-    want = epoch_word.epoch_word(*eargs, impl="plain")
-    torch.cuda.synchronize()
-    exact = all(bool(torch.equal(g, w)) for g, w in zip(got[:4], want[:4]))
-    mom_err = float((got[4] - want[4]).abs().max())
-    mom_ok = bool(torch.allclose(got[4], want[4], rtol=MOM_RTOL,
-                                 atol=MOM_ATOL))
-    emit("epoch_word_vs_plain", exact_words_counts=exact,
-         moments_max_abs_err=mom_err, rtol=MOM_RTOL, atol=MOM_ATOL,
-         reached_members=int((got[0] != 0).sum()))
-    if not (exact and mom_ok):
-        fail("epoch_word disagrees with its plain version")
+    e_stair_word, _ = staircase_words([470 - 40 * b for b in range(B)])
+    e_slots = torch.arange(32, dtype=torch.int32, device=dev)
+    e_stair = list(eargs)
+    e_stair[5] = torch.from_numpy(e_stair_word).to(dev)  # word
+    e_stair[6] = (e_slots[None] + 100 * torch.arange(
+        B, dtype=torch.int32, device=dev)[:, None]).contiguous()  # srank
+    e_stair[7] = torch.zeros_like(eargs[7])  # alive
+    e_stair[9] = torch.zeros_like(eargs[9])  # anchor_r
+    e_stair[10] = (4 * e_slots).expand(B, 32).contiguous()  # anchor_c
+    e_stair = tuple(e_stair)
+    mom_err = 0.0
+    for case, args, expect in (
+            [(f"real_cap{cap}", eargs[:-1] + (cap,), None)
+             for cap in (1, 2, 64)]
+            + [("staircase_cap64", e_stair, [64] * B),
+               # frames past shared memory: strips of 1920 rows, rows of
+               # 38,400 columns (no prelude tables either)
+               ("tall_2x1920x160", reframe_epoch(eargs, 2, 1920, 160), None),
+               ("wide_1x8x38400", reframe_epoch(eargs, 1, 8, 38400), None)]):
+        ran = [torch.zeros(args[0].shape[0], dtype=torch.int32, device=dev)
+               for _ in range(2)]
+        e_got = epoch_word.epoch_word(*args, rounds_out=ran[0])
+        e_want = epoch_word.epoch_word(*args, impl="plain", rounds_out=ran[1])
+        torch.cuda.synchronize()
+        exact = all(bool(torch.equal(g, w))
+                    for g, w in zip(e_got[:4], e_want[:4]))
+        # staircase members include NaN points: NaN moments on both sides
+        err = float((e_got[4] - e_want[4]).nan_to_num(0.0).abs().max())
+        mom_ok = bool(torch.allclose(e_got[4], e_want[4], rtol=MOM_RTOL,
+                                     atol=MOM_ATOL, equal_nan=True))
+        rounds_ok = torch.equal(ran[0], ran[1]) and (
+            expect is None or ran[0].tolist() == expect)
+        mom_err = max(mom_err, err)
+        emit("epoch_word_vs_plain", case=case, shape=list(args[0].shape),
+             exact_words_counts=exact, moments_max_abs_err=err,
+             rtol=MOM_RTOL, atol=MOM_ATOL,
+             reached_members=int((e_got[0] != 0).sum()),
+             rounds_run=ran[0].tolist(), plain_rounds_run=ran[1].tolist(),
+             ms=cuda_ms(torch, lambda: epoch_word.epoch_word(*args)))
+        if not (exact and mom_ok and rounds_ok):
+            fail(f"epoch_word disagrees with its plain version ({case})")
+        if case == "real_cap64":
+            got = e_got
+    per_call, launched, names = kernels_per_call(
+        torch, lambda: epoch_word.epoch_word(*eargs))
+    emit("epoch_word_device_events", per_call=per_call,
+         launch_calls_per_call=launched, names=names)
+    if per_call > 1 or launched != 1:
+        fail(f"epoch_word put {per_call} device events and {launched} "
+             "launches per call on the card, not one kernel")
 
     # 5. CCL kernel vs plain on the cluster stage's real inputs
     cargs = capture(ccl_gated, "ccl_gated", lambda: stream(seg_plain,
@@ -466,11 +592,16 @@ def main():
 
     # 8. times of the 32-slot path (right after its checks, as before the
     # 64-slot phases existed, so its numbers compare with earlier runs)
-    e_ms, e_plain = kernel_times(epoch_word.epoch_word, *eargs)
-    c_ms, c_plain = kernel_times(ccl_gated.ccl_gated, *cargs)
-    emit("times", card=card, epoch_word_ms=e_ms, epoch_word_plain_ms=e_plain,
-         ccl_gated_ms=c_ms, ccl_gated_plain_ms=c_plain,
-         stream=stream_times(seg))
+    e_ms, e_10, e_plain = kernel_times(epoch_word.epoch_word, *eargs)
+    es_ms, es_10, es_plain = kernel_times(epoch_word.epoch_word, *e_stair)
+    c_ms, c_10, c_plain = kernel_times(ccl_gated.ccl_gated, *cargs)
+    emit("times", card=card, epoch_word_ms=e_ms,
+         epoch_word_ms_per_call_of_10=e_10, epoch_word_plain_ms=e_plain,
+         epoch_word_staircase_cap64_ms=es_ms,
+         epoch_word_staircase_cap64_ms_per_call_of_10=es_10,
+         epoch_word_staircase_cap64_plain_ms=es_plain,
+         ccl_gated_ms=c_ms, ccl_gated_ms_per_call_of_10=c_10,
+         ccl_gated_plain_ms=c_plain, stream=stream_times(seg))
 
     # 9. the serving path at 64 slots, counted
     stream(seg64, "room")  # warm-up
@@ -483,12 +614,6 @@ def main():
     # 10. flood kernel vs plain on real and constructed inputs
     fargs = capture(flood_packed, "flood_packed",
                     lambda: stream(seg64_plain, "cluttered"))
-    f_got = flood_packed.flood_packed(*fargs)
-    f_want = flood_packed.flood_packed(*fargs, impl="plain")
-    torch.cuda.synchronize()
-    f_exact = bool(torch.equal(f_got, f_want))
-    f_err = float((f_got.to(torch.int64) - f_want.to(torch.int64))
-                  .abs().max())
     rng = np.random.default_rng(9)
     g9 = rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
         & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
@@ -499,23 +624,52 @@ def main():
         & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64) \
         & rng.integers(-2 ** 31, 2 ** 31, (2, H, W), dtype=np.int64)
     g9, s9 = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (g9, s9))
-    m_exact = bool(torch.equal(
-        flood_packed.flood_packed(g9, s9, 64),
-        flood_packed.flood_packed(g9, s9, 64, impl="plain")))
-    # rounds to the fixed point: the least cap that gives the same words
-    lo, hi = 1, fargs[2]
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if torch.equal(flood_packed.flood_packed(fargs[0], fargs[1], mid),
-                       f_got):
-            hi = mid
-        else:
-            lo = mid + 1
-    emit("flood_packed_vs_plain", planes=fargs[0].shape[0], exact=f_exact,
-         max_abs_err=f_err, reached_words=int((f_got != 0).sum()),
-         rounds_to_fixed_point=lo, short_runs_exact=m_exact)
-    if not (f_exact and m_exact):
-        fail("flood_packed disagrees with its plain version")
+    stair_len = [470 - 25 * p for p in range(16)]
+    f_stair = tuple(torch.from_numpy(a).to(dev)
+                    for a in staircase_words(stair_len))
+    f_err = 0
+    for case, args, expect in (
+            [(f"real_cap{cap}", (fargs[0], fargs[1], cap), None)
+             for cap in (1, 2, 64)]
+            + [("short_runs", (g9, s9, 64), None),
+               ("staircase_cap64", f_stair + (64,), [64] * 16),
+               ("staircase_cap600", f_stair + (600,), stair_len),
+               # the same words as planes past shared memory
+               ("tall_4x1920x640", (fargs[0].reshape(4, 1920, W),
+                                    fargs[1].reshape(4, 1920, W), 64), None),
+               ("wide_16x8x38400", (fargs[0].reshape(16, 8, 38400),
+                                    fargs[1].reshape(16, 8, 38400), 64),
+                None)]):
+        n = args[0].shape[0]
+        ran = [torch.zeros(n, dtype=torch.int32, device=dev)
+               for _ in range(2)]
+        out = flood_packed.flood_packed(*args, rounds_out=ran[0])
+        want = flood_packed.flood_packed(*args, impl="plain",
+                                         rounds_out=ran[1])
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(out, want))
+        err = int((out.to(torch.int64) - want.to(torch.int64)).abs().max())
+        rounds_ok = torch.equal(ran[0], ran[1]) and (
+            expect is None or ran[0].tolist() == expect)
+        f_err = max(f_err, err)
+        emit("flood_packed_vs_plain", case=case, shape=list(args[0].shape),
+             exact=exact, max_abs_err=err,
+             reached_words=int((out != 0).sum()),
+             rounds_run=ran[0].tolist(), plain_rounds_run=ran[1].tolist(),
+             rounds_to_fixed_point=[r - 1 for r in ran[0].tolist()
+                                    if r < args[2]],
+             ms=cuda_ms(torch, lambda: flood_packed.flood_packed(*args)))
+        if not (exact and rounds_ok):
+            fail(f"flood_packed disagrees with its plain version ({case})")
+        if case == "real_cap64":
+            f_got = out
+    per_call, launched, names = kernels_per_call(
+        torch, lambda: flood_packed.flood_packed(*fargs))
+    emit("flood_packed_device_events", per_call=per_call,
+         launch_calls_per_call=launched, names=names)
+    if per_call > 1 or launched != 1:
+        fail(f"flood_packed put {per_call} device events and {launched} "
+             "launches per call on the card, not one kernel")
 
     # 11. 64-slot stream vs plain, and run-to-run
     check_vs_plain_and_rerun(out64, seg64, seg64_plain, "stream64_vs_plain")
@@ -566,10 +720,13 @@ def main():
                  "and ccl_gated")
 
     # 13. times of the 64-slot paths and the frames, where the time goes
-    f_ms, f_plain = kernel_times(flood_packed.flood_packed, *fargs)
+    f_ms, f_10, f_plain = kernel_times(flood_packed.flood_packed, *fargs)
     fargs2 = tuple(a[:2].contiguous() if torch.is_tensor(a) else a
                    for a in fargs)  # frame 0's two word planes
-    f2_ms, f2_plain = kernel_times(flood_packed.flood_packed, *fargs2)
+    f2_ms, f2_10, f2_plain = kernel_times(flood_packed.flood_packed,
+                                          *fargs2)
+    fs_ms, fs_10, fs_plain = kernel_times(flood_packed.flood_packed,
+                                          *f_stair, 64)
 
     times64 = stream_times(seg64)
 
@@ -599,8 +756,13 @@ def main():
     ftimes = {f"{scene}_k{k}": frame_times(segs[k][0], scenes[scene])
               for scene, k in frame_cases}
     emit("times64", card=card, flood_packed_n16_ms=f_ms,
+         flood_packed_n16_ms_per_call_of_10=f_10,
          flood_packed_n16_plain_ms=f_plain, flood_packed_n2_ms=f2_ms,
-         flood_packed_n2_plain_ms=f2_plain, stream=times64,
+         flood_packed_n2_ms_per_call_of_10=f2_10,
+         flood_packed_n2_plain_ms=f2_plain,
+         flood_packed_staircase_cap64_ms=fs_ms,
+         flood_packed_staircase_cap64_ms_per_call_of_10=fs_10,
+         flood_packed_staircase_cap64_plain_ms=fs_plain, stream=times64,
          segment_frame_stream=ftimes)
 
     stage_profile(torch, card, segs, stream, scenes, rays, origin, pipeline)
@@ -620,20 +782,20 @@ def main():
              source="pcseg_tpu_torch/csrc/epoch_word.cu",
              replaces="pcseg_tpu/models/planar_batched.py:291",
              launches=counts32["epoch_word"], max_abs_err=mom_err,
-             ms=e_ms, plain_ms=e_plain, bound_ms=e_bound[0],
-             bound_by=e_bound[1], library_ms=None),
+             ms=e_ms, ms_per_call_of_10=e_10, plain_ms=e_plain,
+             bound_ms=e_bound[0], bound_by=e_bound[1], library_ms=None),
         dict(name="ccl_gated", route="cuda",
              source="pcseg_tpu_torch/csrc/ccl_gated.cu",
              replaces="pcseg_tpu/ops/connectivity.py:296",
              launches=counts32["ccl_gated"], max_abs_err=c_err,
-             ms=c_ms, plain_ms=c_plain, bound_ms=c_bound[0],
-             bound_by=c_bound[1], library_ms=None),
+             ms=c_ms, ms_per_call_of_10=c_10, plain_ms=c_plain,
+             bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None),
         dict(name="flood_packed", route="cuda",
              source="pcseg_tpu_torch/csrc/flood_packed.cu",
              replaces="pcseg_tpu/models/planar_batched.py:133",
              launches=counts64["flood_packed"], max_abs_err=f_err,
-             ms=f_ms, plain_ms=f_plain, bound_ms=f_bound[0],
-             bound_by=f_bound[1], library_ms=None),
+             ms=f_ms, ms_per_call_of_10=f_10, plain_ms=f_plain,
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// Segmented OR-flood of packed bit-planes to the fixed point, for sm_90a.
+// Segmented OR-flood of packed bit-planes to the fixed point, for sm_90a,
+// in one persistent cooperative launch.
 //
 // Replaces the TPU kernel pcseg_tpu/models/planar_batched.py::_flood_pallas
 // (entered by _flood_call and flood_fill_static; the closure epochs of the
@@ -8,38 +9,70 @@
 // word plane k / 32). One round spreads every reached bit through its whole
 // run of gate bits along the rows, then along the columns; rounds repeat to
 // the fixed point or `rounds` rounds. Planes never interact, so the frames
-// of a batch and the word planes of a frame are one stack of N planes.
+// of a batch and the word planes of a frame are one stack of N planes, and
+// each plane stops on its own, as JAX's one program per word plane does.
 //
-// What bounds it on this card: bytes and launch count, not arithmetic (the
-// flood is bitwise AND and OR). Each round reads the gate and reach words
-// and writes reach: 1.2 MB each per word plane at VGA, so 59 MB a round for
-// a VGA batch of 8 frames at 64 slots (N = 16), above the 50 MB L2. The
-// design reads each plane's words once per pass with coalesced loads (a
-// warp per row, 32 neighbouring columns per warp in the column pass), keeps
-// the run carries in registers and shared memory, and stops without a host
-// sync: a device flag per round turns the remaining launches into no-ops
-// once a round leaves every word unchanged (seg_flood.cuh). The rounds a
-// flood needs are few (the fixed point of a plane comes after as many
-// rounds as its reached runs have turns), so the early stop, not the
-// per-round bytes, keeps the cap of 64 rounds affordable.
-//
-// `max_run` of the JAX kernel (a promise that no gate run is longer, which
-// bounds its doubling scans) needs no counterpart here: the passes scan
-// whole runs, which equals the bounded scans whenever the promise holds.
+// What bounds it on this card (H100, tools/kernel_phases.py): the latency
+// of a round (~14 us) for one or two word planes, the bytes of a round
+// through L2 (~45 us) for the 16 planes of a VGA batch at 64 slots, whose
+// gate and reach (39 MB) stay inside the 50 MB L2 (seg_flood.cuh). The
+// design runs every round in one launch with a grid sync after each pass
+// and a per-plane stop test on the device that needs no copy of the
+// round's start, so no launch is spent on a round after a plane's fixed
+// point. The sources are read by the first row pass, so the call copies
+// nothing.
 
 #include <cuda_runtime.h>
 
 #include "seg_flood.cuh"
 
+namespace {
+
+namespace cg = cooperative_groups;
+
+struct FloodArgs {
+  const unsigned* gate;
+  const unsigned* src;
+  unsigned* reach;
+  int* flags;
+  int* rounds_run;
+  int N, rounds;
+  seg_flood::Plan plan;
+};
+
+template <bool kStaged>
+__global__ void __launch_bounds__(seg_flood::kThreads, 1)
+    flood_packed_kernel(FloodArgs a) {
+  extern __shared__ unsigned smem[];
+  cg::grid_group grid = cg::this_grid();
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < a.N; i += blockDim.x) a.flags[i] = 0;
+  grid.sync();
+  seg_flood::flood<kStaged>(grid, a.plan, smem, a.gate, a.src, a.reach,
+                            a.flags, a.rounds_run, a.rounds, a.N);
+}
+
+seg_flood::Launch g_launch;
+
+}  // namespace
+
 // All arrays live on the device, int32 [N, H, W] read as unsigned words:
-// gate (input), reach (the flood's sources on entry, its result on return),
-// start (scratch). flags: int32[max(rounds, 1)] zeroed by the caller.
-extern "C" int flood_packed_launch(const int* gate, int* reach, int* start,
-                                   int* flags, int N, int H, int W,
-                                   int rounds, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  return (int)seg_flood::flood_rounds(
-      reinterpret_cast<const unsigned*>(gate),
-      reinterpret_cast<unsigned*>(reach), reinterpret_cast<unsigned*>(start),
-      flags, rounds, N, H, W, (cudaStream_t)stream);
+// gate (input), src (the flood's sources), reach (the result). Scratch:
+// flags int32 [3 * N], uninitialised. rounds_run: int32 [N], the rounds
+// each plane ran, or null. One cooperative launch; returns its CUDA error,
+// never falling back.
+extern "C" int flood_packed_launch(const int* gate, const int* src,
+                                   int* reach, int* flags, int* rounds_run,
+                                   int N, int H, int W, int rounds,
+                                   void* stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = seg_flood::prepare(flood_packed_kernel<true>,
+                                     flood_packed_kernel<false>, H, W, 0,
+                                     false, &g_launch);
+  if (e != cudaSuccess) return (int)e;
+  FloodArgs a{reinterpret_cast<const unsigned*>(gate),
+              reinterpret_cast<const unsigned*>(src),
+              reinterpret_cast<unsigned*>(reach), flags, rounds_run, N,
+              rounds, g_launch.plan};
+  return (int)seg_flood::launch(g_launch, &a, (cudaStream_t)stream);
 }

@@ -8,6 +8,9 @@ the checkout (listed in ``.gitignore``); the hash covers the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds. Nothing here runs at import time.
 
+``-Xptxas -v`` makes each build report its kernels' registers, shared
+memory and spills; ``build_all`` returns those lines.
+
 The flags carry no ``--use_fast_math`` (the plane-distance gates compare
 NaN points) and ``--fmad=false``: every f32 multiply and add rounds on its
 own, exactly as the plain PyTorch versions evaluate them, so kernel and
@@ -27,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcseg_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 SOURCES = ("epoch_word", "ccl_gated", "flood_packed")
 
 _loaded: dict = {}
@@ -68,23 +72,27 @@ def _start_build(name: str):
     return proc, out, tmp
 
 
-def _finish_build(name, proc, out, tmp):
+def _finish_build(name, proc, out, tmp) -> list:
+    """Wait for nvcc; returns its report of each kernel's registers, shared
+    memory and spills (nothing when the library was built before)."""
     if proc is None:
-        return
+        return []
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
+    keep = ("Compiling entry", "Used ", "spill stores")
+    return [ln.split("ptxas info    :")[-1].strip() for ln in log.splitlines()
+            if any(k in ln for k in keep)]
 
 
-def build_all(names=SOURCES) -> float:
+def build_all(names=SOURCES):
     """Compile every listed source not built yet, one nvcc each, all
-    started together. Returns the wall seconds spent."""
+    started together. Returns (wall seconds, {name: ptxas info lines})."""
     t0 = time.perf_counter()
     jobs = [(n, *_start_build(n)) for n in names]
-    for job in jobs:
-        _finish_build(*job)
-    return time.perf_counter() - t0
+    report = {job[0]: _finish_build(*job) for job in jobs}
+    return time.perf_counter() - t0, report
 
 
 def load(name: str) -> ctypes.CDLL:

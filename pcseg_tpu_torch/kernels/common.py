@@ -1,5 +1,6 @@
-"""Shared pieces of the kernel wrappers: grid shifts and segmented
-Hillis-Steele scans for the plain PyTorch versions, and argument checks.
+"""Shared pieces of the kernel wrappers: grid shifts, segmented
+Hillis-Steele scans and the OR-flood for the plain PyTorch versions, and
+argument checks.
 """
 
 from __future__ import annotations
@@ -67,6 +68,39 @@ def seg_or_scan(v, blocked, dim, reverse):
     return v
 
 
+def or_flood(gate, reach0, rounds):
+    """Plain segmented OR-flood of [N, H, W] int32 word planes (the port of
+    JAX's ``_seg_or_scan_packed`` rounds and while-loop): one round spreads
+    every set bit through its run of gate bits along the rows, then along
+    the columns (fwd | bwd, masked by the gate); the first round always
+    runs, and rounds repeat while the stack changed, at most ``rounds``.
+
+    Returns (words, rounds_run): int32 [N], the rounds each plane would run
+    if it stopped on its own (the kernels' per-plane stop), the first round
+    plus one per round that changed the plane before the last."""
+    not_g = ~gate
+
+    def spread(r, dim):
+        fwd = seg_or_scan(r, not_g, dim, False)
+        bwd = seg_or_scan(r, not_g, dim, True)
+        return (fwd | bwd) & gate
+
+    def one_round(r):
+        return spread(spread(r, -1), -2)
+
+    prev, reach = reach0, one_round(reach0)
+    ran = torch.ones(gate.shape[0], dtype=torch.int32, device=gate.device)
+    it = 1
+    while it < rounds:
+        moved = (reach != prev).flatten(1).any(dim=1)
+        if not bool(moved.any()):
+            break
+        ran += moved.to(torch.int32)
+        prev, reach = reach, one_round(reach)
+        it += 1
+    return reach, ran
+
+
 def check(name, t, dtype, shape, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``."""
@@ -96,8 +130,9 @@ def use_kernel(device: torch.device, impl) -> bool:
     return True
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p:
+    """The device pointer of tensor ``t``; NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_ptr() -> ctypes.c_void_p:

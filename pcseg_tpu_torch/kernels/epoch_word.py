@@ -4,12 +4,12 @@ pcseg_tpu/models/planar_batched.py::_epoch_kernel_batched).
 
 Up to 32 slots ride in the bits of one int32 member word per pixel (read
 with ``(w >> k) & 1``). Per frame: the claim rank and the gate/anchor words,
-the segmented OR-flood of the anchors through the gate to the fixed point,
-min-rank claims (the new word), and per slot the member count, the best
-member seed rank, the col-major index holding it, and the 10 plane-fit
-moment sums (f32 products summed in f64, then rounded to f32: the kernel
-and the plain version sum in different orders, and the f64 sums round to
-the same f32 except at a rounding boundary).
+the segmented OR-flood of the anchors through the gate to the fixed point
+(or the rounds cap), min-rank claims (the new word), and per slot the
+member count, the best member seed rank, the col-major index holding it,
+and the 10 plane-fit moment sums (f32 products summed in f64, then
+rounded to f32: the kernel and the plain version sum in different orders,
+and the f64 sums round to the same f32 except at a rounding boundary).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def _bit(word, k):
 
 
 def epoch_word_plain(px, py, pz, rank, elig, word, srank, alive, plane,
-                     anchor_r, anchor_c, radius, tau, rounds):
+                     anchor_r, anchor_c, radius, tau, rounds, rounds_out=None):
     """Plain PyTorch version of one epoch (see the module docstring)."""
     b, h, w = px.shape
     k_cap = srank.shape[1]
@@ -77,21 +77,9 @@ def epoch_word_plain(px, py, pz, rank, elig, word, srank, alive, plane,
         gate |= g.to(torch.int32) << k
         reach |= anchor.to(torch.int32) << k
 
-    not_g = ~gate
-
-    def spread(r, dim):
-        fwd = common.seg_or_scan(r, not_g, dim, False)
-        bwd = common.seg_or_scan(r, not_g, dim, True)
-        return (fwd | bwd) & gate
-
-    def one_round(r):
-        return spread(spread(r, -1), -2)
-
-    prev, reach = reach, one_round(reach)
-    it = 1
-    while it < rounds and bool((reach != prev).any()):
-        prev, reach = reach, one_round(reach)
-        it += 1
+    reach, ran = common.or_flood(gate, reach, rounds)
+    if rounds_out is not None:
+        rounds_out.copy_(ran)
 
     best = torch.full((b, h, w), INF_RANK, dtype=torch.int32, device=dev)
     for k in range(k_cap):
@@ -125,16 +113,22 @@ def epoch_word_plain(px, py, pz, rank, elig, word, srank, alive, plane,
 
 
 def epoch_word(px, py, pz, rank, elig, word, srank, alive, plane, anchor_r,
-               anchor_c, radius, tau: float, rounds: int, impl=None):
+               anchor_c, radius, tau: float, rounds: int, impl=None,
+               rounds_out=None):
     """One closure epoch over a batch of frames.
 
     Grids [B, H, W]: px/py/pz f32, rank/elig/word int32. Slot tables
     [B, K] int32: srank, alive, anchor_r, anchor_c; plane f32 [B, K, 4];
     radius int32 [B]. K <= 32. Returns (word int32 [B, H, W], cnt, mrank,
-    alin int32 [B, K], mom f32 [B, K, 10]).
+    alin int32 [B, K], mom f32 [B, K, 10]). ``rounds_out`` (int32 [B] on
+    the frames' device, optional) receives the flood rounds each frame ran:
+    its rounds to the fixed point plus the one that confirms it, or
+    ``rounds``.
 
     CPU tensors (or ``impl="plain"``) take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel, one cooperative launch per call, for any H and W
+    (frames whose rows or column strips do not fit in shared memory take
+    the kernel's in-place instance)."""
     global launches
     b, h, w = px.shape
     k_cap = srank.shape[1] if srank.dim() == 2 else -1
@@ -151,22 +145,23 @@ def epoch_word(px, py, pz, rank, elig, word, srank, alive, plane, anchor_r,
         common.check(name, t, torch.int32, (b, k_cap), dev)
     common.check("plane", plane, torch.float32, (b, k_cap, 4), dev)
     common.check("radius", radius, torch.int32, (b,), dev)
+    if rounds_out is not None:
+        common.check("rounds_out", rounds_out, torch.int32, (b,), dev)
     if not common.use_kernel(dev, impl):
         return epoch_word_plain(px, py, pz, rank, elig, word, srank, alive,
                                 plane, anchor_r, anchor_c, radius, tau,
-                                rounds)
+                                rounds, rounds_out)
     lib = _lib()
     ppb = lib.epoch_word_pixels_per_block()
     nblk = -(-(h * w) // ppb)
     i32 = dict(dtype=torch.int32, device=dev)
     out = torch.empty((b, h, w), **i32)
     gate = torch.empty((b, h, w), **i32)
-    start = torch.empty((b, h, w), **i32)
-    flags = torch.zeros(max(rounds, 1), **i32)
-    part_mom = torch.empty((b, nblk, k_cap, 10), dtype=torch.float64,
+    flags = torch.empty(3 * b, **i32)
+    part_mom = torch.empty((b, k_cap, 10, nblk), dtype=torch.float64,
                            device=dev)
-    part_cnt = torch.empty((b, nblk, k_cap), **i32)
-    part_key = torch.empty((b, nblk, k_cap), dtype=torch.int64, device=dev)
+    part_cnt = torch.empty((b, k_cap, nblk), **i32)
+    part_key = torch.empty((b, k_cap, nblk), dtype=torch.int64, device=dev)
     cnt = torch.empty((b, k_cap), **i32)
     mrank = torch.empty((b, k_cap), **i32)
     alin = torch.empty((b, k_cap), **i32)
@@ -175,7 +170,7 @@ def epoch_word(px, py, pz, rank, elig, word, srank, alive, plane, anchor_r,
     rc = lib.epoch_word_launch(
         p(px), p(py), p(pz), p(rank), p(elig), p(word), p(srank), p(alive),
         p(plane), p(anchor_r), p(anchor_c), p(radius), p(out), p(gate),
-        p(start), p(flags), p(part_mom), p(part_cnt), p(part_key), p(cnt),
+        p(flags), p(rounds_out), p(part_mom), p(part_cnt), p(part_key), p(cnt),
         p(mrank), p(alin), p(mom), b, h, w, k_cap, float(tau), int(rounds),
         common.stream_ptr())
     if rc != 0:

@@ -6,7 +6,9 @@ pcseg_tpu/models/planar_batched.py::_flood_pallas), plus the packing of
 Each bit of a word plane floods on its own: one round spreads every
 reached bit through its run of gate bits along the rows, then along the
 columns (fwd | bwd, masked by the gate); rounds repeat to the fixed point
-of the whole stack or ``rounds`` rounds, the first one always.
+or ``rounds`` rounds, the first one always. The kernel stops each plane on
+its own, the plain version the whole stack: rounds past a plane's fixed
+point change nothing, so the words are the same.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ def _lib():
     lib = build.load("flood_packed")
     fn = lib.flood_packed_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 4 + [_I] * 4 + [_VP]
+        fn.argtypes = [_VP] * 5 + [_I] * 4 + [_VP]
         fn.restype = _I
     return lib
 
@@ -62,54 +64,47 @@ def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
 def flood_packed_plain(gate, reach0, rounds):
     """Plain PyTorch version: JAX's Hillis-Steele doubling scans
     (``_seg_or_scan_packed``) over whole axes and its while-loop round
-    structure."""
-    not_g = ~gate
-
-    def spread(r, dim):
-        fwd = common.seg_or_scan(r, not_g, dim, False)
-        bwd = common.seg_or_scan(r, not_g, dim, True)
-        return (fwd | bwd) & gate
-
-    def one_round(r):
-        return spread(spread(r, -1), -2)
-
-    prev, reach = reach0, one_round(reach0)
-    it = 1
-    while it < rounds and bool((reach != prev).any()):
-        prev, reach = reach, one_round(reach)
-        it += 1
-    return reach
+    structure. Returns (words, rounds_run per plane)."""
+    return common.or_flood(gate, reach0, rounds)
 
 
 def flood_packed(gate_words: torch.Tensor, reach0_words: torch.Tensor,
-                 rounds: int, impl=None) -> torch.Tensor:
+                 rounds: int, impl=None, rounds_out=None) -> torch.Tensor:
     """Flood the set bits of ``reach0_words`` through ``gate_words``, both
     int32 [N, H, W] word planes; returns the reached words.
 
     Both versions scan whole runs of gate bits. JAX's kernel takes a
     ``max_run`` bound on its doubling scans, which only its own tests
     pass; where no run is longer than that bound, its words equal these.
+    ``rounds_out`` (int32 [N] on the planes' device, optional) receives the
+    rounds each plane ran: its rounds to the fixed point plus the one that
+    confirms it, or ``rounds``.
 
     CPU tensors (or ``impl="plain"``) take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel, one cooperative launch per call, for any H and W
+    (planes whose rows or column strips do not fit in shared memory take
+    the kernel's in-place instance)."""
     global launches
     if gate_words.dim() != 3:
         raise ValueError(f"gate_words must be [N, H, W], got "
                          f"{tuple(gate_words.shape)}")
     n, h, w = gate_words.shape
-    common.check("gate_words", gate_words, torch.int32, (n, h, w),
-                 gate_words.device)
-    common.check("reach0_words", reach0_words, torch.int32, (n, h, w),
-                 gate_words.device)
-    if not common.use_kernel(gate_words.device, impl):
-        return flood_packed_plain(gate_words, reach0_words, rounds)
-    out = reach0_words.clone()
-    start = torch.empty_like(out)
-    flags = torch.zeros(max(rounds, 1), dtype=torch.int32,
-                        device=gate_words.device)
+    dev = gate_words.device
+    common.check("gate_words", gate_words, torch.int32, (n, h, w), dev)
+    common.check("reach0_words", reach0_words, torch.int32, (n, h, w), dev)
+    if rounds_out is not None:
+        common.check("rounds_out", rounds_out, torch.int32, (n,), dev)
+    if not common.use_kernel(dev, impl):
+        out, ran = flood_packed_plain(gate_words, reach0_words, rounds)
+        if rounds_out is not None:
+            rounds_out.copy_(ran)
+        return out
+    out = torch.empty_like(reach0_words)
+    flags = torch.empty(3 * n, dtype=torch.int32, device=dev)
     rc = _lib().flood_packed_launch(
-        common.ptr(gate_words), common.ptr(out), common.ptr(start),
-        common.ptr(flags), n, h, w, int(rounds), common.stream_ptr())
+        common.ptr(gate_words), common.ptr(reach0_words), common.ptr(out),
+        common.ptr(flags), common.ptr(rounds_out), n, h, w, int(rounds),
+        common.stream_ptr())
     if rc != 0:
         raise RuntimeError(f"flood_packed_launch failed with CUDA error {rc}")
     launches += 1

@@ -604,10 +604,9 @@ def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
             torch.full((b,), radius, dtype=torch.int32, device=dev), tau,
             FLOOD_ROUNDS, impl=impl)
         alive = s.alive & (counts > 0) & (member_rank < INF_RANK)
-        alive_bits = torch.where(alive, kbits[None], 0)
-        keep = torch.zeros(b, dtype=torch.int32, device=dev)
-        for k in range(k_cap):
-            keep |= alive_bits[:, k]
+        # distinct bits sum without carry (bit 31 is the sign, no overflow)
+        keep = torch.where(alive, kbits[None], 0).sum(dim=1,
+                                                      dtype=torch.int32)
         wd = new_word & keep[:, None, None]
         s = reanchor(s, alive, member_rank,
                      torch.where(alive, anchor_lin, s.seed_idx))

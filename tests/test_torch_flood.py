@@ -43,14 +43,48 @@ def recipe(name):
     return gate, gate & (rng.random(gate.shape) < 0.05), 9
 
 
-def port_flood(gate, src, rounds=64, device="cpu", impl=None):
-    """Port flood of [B, K, H, W] bool masks -> [B, K, H, W] bool."""
+def port_flood(gate, src, rounds=64, device="cpu", impl=None,
+               with_rounds=False):
+    """Port flood of [B, K, H, W] bool masks -> [B, K, H, W] bool (and the
+    rounds each of the B * ceil(K / 32) word planes ran)."""
     b, k, h, w = gate.shape
     g = flood_packed.pack_bits(torch.from_numpy(gate)).reshape(-1, h, w)
     r = flood_packed.pack_bits(torch.from_numpy(src & gate)).reshape(-1, h, w)
+    ran = torch.zeros(g.shape[0], dtype=torch.int32, device=device)
     out = flood_packed.flood_packed(g.to(device), r.to(device), rounds,
-                                    impl=impl).cpu()
-    return flood_packed.unpack_bits(out.reshape(b, -1, h, w), k).numpy()
+                                    impl=impl, rounds_out=ran).cpu()
+    out = flood_packed.unpack_bits(out.reshape(b, -1, h, w), k).numpy()
+    return (out, ran.cpu().numpy()) if with_rounds else out
+
+
+def staircase(n, mirror=False):
+    """[n, n] bool one-cell staircase (i, i) -> (i, i + 1) -> (i + 1, i + 1)
+    (columns mirrored if asked). A flood from its first cell gains one
+    step a round (a row pass, then a column pass), so it reaches the last
+    cell after n - 1 rounds and runs n with the confirming round."""
+    g = np.zeros((n, n), bool)
+    i = np.arange(n)
+    g[i, i] = True
+    g[i[:-1], i[:-1] + 1] = True
+    return g[:, ::-1] if mirror else g
+
+
+def stair_frames(lengths, k=40, size=96):
+    """[B, K, size, size] gate and sources: frame f's slot 0 (word plane 0)
+    and slot 33 (word plane 1) carry staircases of lengths[f] diagonal
+    cells, sourced at their first cell; every other slot is empty."""
+    gate = np.zeros((len(lengths), k, size, size), bool)
+    src = np.zeros_like(gate)
+    for f, (l0, l1) in enumerate(lengths):
+        gate[f, 0, :l0, :l0] = staircase(l0)
+        gate[f, 33, :l1, size - l1:] = staircase(l1, mirror=True)
+        src[f, 0, 0, 0] = src[f, 33, 0, size - 1] = True
+    return gate, src
+
+
+def jax_flood(gate, src, rounds):
+    return np.stack([np.asarray(jpb.flood_fill_static(
+        jnp.asarray(g), jnp.asarray(s), rounds)) for g, s in zip(gate, src)])
 
 
 @pytest.mark.parametrize("name", ["k40", "max_run9"])
@@ -88,6 +122,60 @@ def test_flood_batched_planes(rounds):
         np.testing.assert_array_equal(got[f], want, err_msg=f"frame {f}")
     if rounds == 2:
         assert (got != port_flood(gate, src, 64)).any(), "cap should bind"
+
+
+@pytest.mark.parametrize("rounds", [64, 128])
+def test_flood_staircase_matches_jax(rounds):
+    """A 96x96 staircase needs 95 rounds: exact against JAX where the
+    64-round cap binds and where the flood reaches its fixed point; the
+    rounds run are the cap, or 95 plus the confirming round."""
+    gate, src = stair_frames([(96, 96)])
+    rng = np.random.default_rng(4)
+    gate[0, 5:30] = rng.random((25, 96, 96)) < 0.6  # busy slots beside
+    src[0, 5:30] = gate[0, 5:30] & (rng.random((25, 96, 96)) < 0.01)
+    got, ran = port_flood(gate, src, rounds, with_rounds=True)
+    np.testing.assert_array_equal(got, jax_flood(gate, src, rounds))
+    np.testing.assert_array_equal(ran, [min(rounds, 96)] * 2)
+    if rounds == 64:
+        assert (got != port_flood(gate, src, 128)).any(), "cap should bind"
+        assert got[0, 0].sum() == 2 * 64 + 1  # 64 steps down the stairs
+
+
+@pytest.mark.parametrize("rounds", [40, 128])
+def test_flood_planes_stop_on_their_own(rounds):
+    """Six word planes whose staircases reach their fixed points after 95,
+    9, 49, 2, 0 and 69 rounds: each frame equals JAX's flood of that frame
+    alone, and each plane ran its own rounds (the cap, or its rounds to the
+    fixed point plus the confirming one)."""
+    lengths = [(96, 10), (50, 3), (1, 70)]
+    gate, src = stair_frames(lengths)
+    got, ran = port_flood(gate, src, rounds, with_rounds=True)
+    np.testing.assert_array_equal(got, jax_flood(gate, src, rounds))
+    np.testing.assert_array_equal(
+        ran, np.minimum(np.ravel(lengths), rounds))
+
+
+# Planes past the kernel's shared memory on an H100: strips taller than
+# ~870 rows, rows wider than ~27,000 columns (csrc/seg_flood.cuh scans
+# them in place).
+BIG_SHAPES = [(1100, 24), (4, 28800)]
+
+
+def big_frames(shape):
+    """[1, 34, H, W] random gate and sparse sources (two word planes)."""
+    rng = np.random.default_rng(shape[0])
+    gate = rng.random((1, 34) + shape) < 0.6
+    return gate, gate & (rng.random(gate.shape) < 0.002)
+
+
+@pytest.mark.parametrize("shape", BIG_SHAPES)
+def test_flood_tall_and_wide_matches_jax(shape):
+    """The shapes the kernel scans in place: the plain version, which the
+    kernel is held to, equals JAX's flood there too."""
+    gate, src = big_frames(shape)
+    got = port_flood(gate, src)
+    np.testing.assert_array_equal(got, jax_flood(gate, src, 64))
+    assert got.sum() > 5 * src.sum()  # the flood spread
 
 
 @pytest.mark.parametrize("k", [33, 40, 64])
@@ -159,3 +247,38 @@ def test_flood_kernel_matches_plain(cuda_device, rounds):
     got = port_flood(gate, src, rounds, device=cuda_device)
     want = port_flood(gate, src, rounds, device=cuda_device, impl="plain")
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [64, 128])
+def test_flood_kernel_staircase_matches_plain(cuda_device, rounds):
+    gate, src = stair_frames([(96, 96)])
+    got = port_flood(gate, src, rounds, device=cuda_device, with_rounds=True)
+    want = port_flood(gate, src, rounds, device=cuda_device, impl="plain",
+                      with_rounds=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [40, 128])
+def test_flood_kernel_planes_stop_on_their_own(cuda_device, rounds):
+    lengths = [(96, 10), (50, 3), (1, 70)]
+    gate, src = stair_frames(lengths)
+    got, ran = port_flood(gate, src, rounds, device=cuda_device,
+                          with_rounds=True)
+    want = port_flood(gate, src, rounds, device=cuda_device, impl="plain")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ran,
+                                  np.minimum(np.ravel(lengths), rounds))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BIG_SHAPES)
+def test_flood_kernel_tall_and_wide_matches_plain(cuda_device, shape):
+    gate, src = big_frames(shape)
+    got = port_flood(gate, src, device=cuda_device, with_rounds=True)
+    want = port_flood(gate, src, device=cuda_device, impl="plain",
+                      with_rounds=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

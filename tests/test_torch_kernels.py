@@ -87,11 +87,14 @@ def run_port_epoch(inp, device="cpu", impl=None, tau=0.05, rounds=64):
             epoch_word.epoch_word(*args, tau, rounds, impl=impl)]
 
 
-@pytest.mark.parametrize("k_cap", [8, 32])
-def test_epoch_plain_matches_pallas_interpret(k_cap):
+@pytest.mark.parametrize("k_cap,rounds", [(8, 64), (32, 64), (8, 1), (8, 2)])
+def test_epoch_plain_matches_pallas_interpret(k_cap, rounds):
+    """Exact against JAX's epoch kernel; at 1 and 2 rounds the cap binds,
+    so the round structure itself is held (K = 8 there: JAX's interpret
+    mode traces every slot, and K = 32 takes half a minute a case)."""
     b, h, w = 2, 32, 48
     inp = epoch_inputs(b, h, w, k_cap)
-    call = jpb._epoch_kernel_batched(h, w, k_cap, 0.05, 64, True, b)
+    call = jpb._epoch_kernel_batched(h, w, k_cap, 0.05, rounds, True, b)
     j = call(jnp.asarray(inp["radius"]).reshape(b, 1, 1),
              *[jnp.asarray(inp[n]) for n in ("px", "py", "pz", "rank",
                                               "elig")],
@@ -99,7 +102,7 @@ def test_epoch_plain_matches_pallas_interpret(k_cap):
              *[jnp.asarray(inp[n])[:, None] for n in
                ("srank", "alive", "plane", "anchor_r", "anchor_c")])
     j_word, j_cnt, j_mrank, j_alin, j_mom = (np.asarray(x) for x in j)
-    word, cnt, mrank, alin, mom = run_port_epoch(inp)
+    word, cnt, mrank, alin, mom = run_port_epoch(inp, rounds=rounds)
     np.testing.assert_array_equal(word, j_word.view(np.int32))
     np.testing.assert_array_equal(cnt, j_cnt[:, 0])
     np.testing.assert_array_equal(mrank, j_mrank[:, 0])
@@ -108,8 +111,10 @@ def test_epoch_plain_matches_pallas_interpret(k_cap):
                                atol=JAX_MOM_ATOL)
     np.testing.assert_allclose(mom, f64_moments(inp, word, k_cap),
                                rtol=MOM_RTOL, atol=MOM_ATOL)
-    # the flood really spread beyond the seeded boxes
-    assert (word != 0).sum() > 4 * (inp["word"] != 0).sum()
+    if rounds < 64:
+        assert (word != run_port_epoch(inp)[0]).any(), "cap should bind"
+    else:  # the flood really spread beyond the seeded boxes
+        assert (word != 0).sum() > 4 * (inp["word"] != 0).sum()
 
 
 def f64_moments(inp, word, k_cap):
@@ -187,6 +192,44 @@ def cuda_device():
 def test_epoch_kernel_matches_plain(cuda_device, shape):
     b, h, w, k_cap = shape
     inp = epoch_inputs(b, h, w, k_cap, seed=1)
+    got = run_port_epoch(inp, cuda_device)
+    want = run_port_epoch(inp, cuda_device, impl="plain")
+    for g, p in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, p)
+    np.testing.assert_allclose(got[4], want[4], rtol=MOM_RTOL,
+                               atol=MOM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_epoch_kernel_cap_matches_plain(cuda_device, rounds):
+    """The cap-binding cases of test_epoch_plain_matches_pallas_interpret:
+    the kernel's words, tables and rounds run equal the plain version's."""
+    inp = epoch_inputs(2, 32, 48, 8)
+    args = [_t(inp[n]).to(cuda_device) for n in ORDER]
+    ran = [torch.zeros(2, dtype=torch.int32, device=cuda_device)
+           for _ in range(2)]
+    got = epoch_word.epoch_word(*args, 0.05, rounds, rounds_out=ran[0])
+    want = epoch_word.epoch_word(*args, 0.05, rounds, impl="plain",
+                                 rounds_out=ran[1])
+    for g, p in zip(got[:4], want[:4]):
+        assert torch.equal(g, p)
+    torch.testing.assert_close(got[4], want[4], rtol=MOM_RTOL,
+                               atol=MOM_ATOL)
+    assert torch.equal(ran[0], ran[1]) and int(ran[0].max()) == rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1152, 100), (4, 28800)])
+def test_epoch_kernel_tall_and_wide_matches_plain(cuda_device, shape):
+    """Frames past shared memory on an H100 (strips taller than ~870 rows;
+    rows wider than ~27,000 columns, with no prelude tables): a 240x480
+    epoch state laid out as [1, *shape], anchors moved with their pixels."""
+    inp = epoch_inputs(1, 240, 480, 8)
+    lin = inp["anchor_r"] * 480 + inp["anchor_c"]
+    inp = dict(inp, anchor_r=lin // shape[1], anchor_c=lin % shape[1])
+    for n in ("px", "py", "pz", "rank", "elig", "word"):
+        inp[n] = inp[n].reshape((1,) + shape)
     got = run_port_epoch(inp, cuda_device)
     want = run_port_epoch(inp, cuda_device, impl="plain")
     for g, p in zip(got[:4], want[:4]):
