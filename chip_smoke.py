@@ -23,8 +23,14 @@ final result line):
      each frame ran exact, moments within the stated tolerance; a
      torch.profiler window counts the device kernels per call (must be
      one);
-  5. the CCL kernel (B2) against its plain version on the cluster stage's
-     real inputs (captured the same way, cluttered scene): exact;
+  5. the CCL kernel (B2) against its plain version: labels and the rounds
+     each frame ran exact, on the cluster stage's real inputs (captured the
+     same way, cluttered scene) at caps 1, 2 and 24, on a VGA batch of two
+     serpentines whose fixed points need ~210 and ~110 rounds (cap 24
+     binds; cap 256 reaches both), on the captured inputs laid out as tall
+     (1920-row) and wide (38,400-column) frames, which take the kernel's
+     second instance, and with the 5x5 window (24 offsets, its gate built
+     from the captured points); one device kernel per call, as in phase 4;
   6. the stream forward against its ``impl="plain"`` run (labels and
      counts exact, planes within 1e-4) and against a second kernel run
      (bit-identical);
@@ -32,7 +38,7 @@ final result line):
      labels and counts exact, planes within the conditioning-aware
      tolerance of the CPU tests (PLANE_ATOL for well-conditioned fits);
   8. times of that path: CUDA-event medians of B1 (also on the staircase)
-     and B2, of a single call (as earlier runs timed them; the kernels
+     and B2 (also on the serpentines at cap 24), of a single call (as earlier runs timed them; the kernels
      line's ``ms``) and per call over 10 back-to-back calls
      (``ms_per_call_of_10``), against their plain versions, and the
      stream's ms/batch and points/s (taken here, before the 64-slot
@@ -249,6 +255,32 @@ def staircase_words(lengths, h=H, w=W):
     return gate.astype(np.int32), src.astype(np.int32)
 
 
+def serpentine(ncols, h=H, w=W, step=3):
+    """[H, W, 3] points and [H, W] eligibility of a serpentine over the
+    first ``ncols`` columns: eligible vertical runs at columns 0, step, ...,
+    joined alternately along the top and the bottom row, the ineligible
+    columns between runs keeping the 3x3 window from cutting corners. All
+    points are equal, so every edge between eligible cells passes, and the
+    minimum label crosses one run a round: the fixed point takes about
+    ncols / step rounds."""
+    elig = np.zeros((h, w), bool)
+    elig[:, :ncols:step] = True
+    for k, c in enumerate(range(0, ncols - step, step)):
+        elig[0 if k % 2 == 0 else h - 1, c:c + step + 1] = True
+    return np.zeros((h, w, 3), np.float32), elig
+
+
+def ccl_inputs(torch, connectivity, points, eligible, thr, half_window):
+    """CCL kernel arguments (gate, labels0, offsets, big) of [B, H, W, 3]
+    points, as connected_components_scan builds them."""
+    h, w = eligible.shape[1:]
+    offsets = connectivity.window_offsets(half_window)
+    gate = connectivity._gate_bits(points, eligible, thr, offsets)
+    labels0 = torch.where(eligible, connectivity.colmajor_index_grid(
+        h, w, points.device), h * w).to(torch.int32).contiguous()
+    return gate, labels0, offsets, h * w
+
+
 def reframe_epoch(args, b, h, w):
     """Closure-epoch arguments of the first ``b`` frames with their grids
     laid out as [b, h, w] (h * w must be the pixels of a frame) and each
@@ -365,7 +397,7 @@ def main():
     from pcseg_tpu_torch.kernels import (build, ccl_gated, epoch_word,
                                          flood_packed)
     from pcseg_tpu_torch.models import config, pipeline
-    from pcseg_tpu_torch.ops import nansafe, unproject
+    from pcseg_tpu_torch.ops import connectivity, nansafe, unproject
     from pcseg_tpu_torch.utils.synthetic import (
         synthetic_cluttered_room_cloud, synthetic_room_cloud)
 
@@ -545,19 +577,64 @@ def main():
         fail(f"epoch_word put {per_call} device events and {launched} "
              "launches per call on the card, not one kernel")
 
-    # 5. CCL kernel vs plain on the cluster stage's real inputs
+    # 5. CCL kernel vs plain on the cluster stage's real inputs at three
+    # caps, on serpentines where the cap binds and where it does not, on
+    # the same inputs as frames past shared memory, and with the 5x5 window
     cargs = capture(ccl_gated, "ccl_gated", lambda: stream(seg_plain,
                                                            "cluttered"))
-    c_got = ccl_gated.ccl_gated(*cargs)
-    c_want = ccl_gated.ccl_gated(*cargs, impl="plain")
-    torch.cuda.synchronize()
-    c_exact = bool(torch.equal(c_got, c_want))
-    c_err = float((c_got - c_want).abs().max())
-    emit("ccl_gated_vs_plain", exact=c_exact, max_abs_err=c_err,
-         eligible=int((c_got < H * W).sum()),
-         components=int(torch.unique(c_got[c_got < H * W]).numel()))
-    if not c_exact:
-        fail("ccl_gated disagrees with its plain version")
+    cpts = capture(connectivity, "connected_components_scan",
+                   lambda: stream(seg_plain, "cluttered"))
+    gate, lab0, offs, _, big = cargs
+    s_frames = [serpentine(W), serpentine(W // 2)]
+    s_args = ccl_inputs(
+        torch, connectivity,
+        torch.from_numpy(np.stack([f[0] for f in s_frames])).to(dev),
+        torch.from_numpy(np.stack([f[1] for f in s_frames])).to(dev),
+        1.0, 1)
+    g5 = ccl_inputs(torch, connectivity, cpts[0], cpts[1], cpts[2], 2)
+
+    def laid_out(b, h, w):
+        return (gate.reshape(b, h, w), lab0.reshape(b, h, w), offs, 24,
+                h * w)
+
+    c_err = 0
+    for case, args, expect in (
+            [(f"real_cap{cap}", (gate, lab0, offs, cap, big), None)
+             for cap in (1, 2, 24)]
+            + [("serpentine_cap24", s_args[:3] + (24, s_args[3]), [24, 24]),
+               ("serpentine_cap256", s_args[:3] + (256, s_args[3]), None),
+               ("tall_2x1920x640", laid_out(2, 1920, W), None),
+               ("wide_8x8x38400", laid_out(8, 8, 38400), None),
+               ("window5x5_cap24", g5[:3] + (24, g5[3]), None)]):
+        n = args[0].shape[0]
+        ran = [torch.zeros(n, dtype=torch.int32, device=dev)
+               for _ in range(2)]
+        c_got = ccl_gated.ccl_gated(*args, rounds_out=ran[0])
+        c_want = ccl_gated.ccl_gated(*args, impl="plain", rounds_out=ran[1])
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(c_got, c_want))
+        err = int((c_got.to(torch.int64) - c_want).abs().max())
+        rounds_ok = torch.equal(ran[0], ran[1]) and (
+            expect is None or ran[0].tolist() == expect)
+        c_err = max(c_err, err)
+        live = c_got < args[4]
+        emit("ccl_gated_vs_plain", case=case, shape=list(args[0].shape),
+             offsets=len(args[2]), exact=exact, max_abs_err=err,
+             eligible=int(live.sum()),
+             components=int(torch.unique(c_got[live]).numel()),
+             rounds_run=ran[0].tolist(), plain_rounds_run=ran[1].tolist(),
+             ms=cuda_ms(torch, lambda: ccl_gated.ccl_gated(*args)))
+        if not (exact and rounds_ok):
+            fail(f"ccl_gated disagrees with its plain version ({case})")
+        if case == "real_cap24":
+            c_got24, c_rounds = c_got, ran[0].tolist()
+    per_call, launched, names = kernels_per_call(
+        torch, lambda: ccl_gated.ccl_gated(*cargs))
+    emit("ccl_gated_device_events", per_call=per_call,
+         launch_calls_per_call=launched, names=names)
+    if per_call > 1 or launched != 1:
+        fail(f"ccl_gated put {per_call} device events and {launched} "
+             "launches per call on the card, not one kernel")
 
     # 6. stream forward vs plain, and run-to-run
     check_vs_plain_and_rerun(main_out, seg, seg_plain, "stream_vs_plain")
@@ -595,13 +672,19 @@ def main():
     e_ms, e_10, e_plain = kernel_times(epoch_word.epoch_word, *eargs)
     es_ms, es_10, es_plain = kernel_times(epoch_word.epoch_word, *e_stair)
     c_ms, c_10, c_plain = kernel_times(ccl_gated.ccl_gated, *cargs)
+    cs_ms, cs_10, cs_plain = kernel_times(ccl_gated.ccl_gated,
+                                          *s_args[:3], 24, s_args[3])
     emit("times", card=card, epoch_word_ms=e_ms,
          epoch_word_ms_per_call_of_10=e_10, epoch_word_plain_ms=e_plain,
          epoch_word_staircase_cap64_ms=es_ms,
          epoch_word_staircase_cap64_ms_per_call_of_10=es_10,
          epoch_word_staircase_cap64_plain_ms=es_plain,
          ccl_gated_ms=c_ms, ccl_gated_ms_per_call_of_10=c_10,
-         ccl_gated_plain_ms=c_plain, stream=stream_times(seg))
+         ccl_gated_plain_ms=c_plain, ccl_gated_rounds_run=c_rounds,
+         ccl_gated_serpentine_cap24_ms=cs_ms,
+         ccl_gated_serpentine_cap24_ms_per_call_of_10=cs_10,
+         ccl_gated_serpentine_cap24_plain_ms=cs_plain,
+         stream=stream_times(seg))
 
     # 9. the serving path at 64 slots, counted
     stream(seg64, "room")  # warm-up
@@ -775,7 +858,7 @@ def main():
                     # pixel) and 6 moment products per member
                     f32_ops=7 * eargs[6].shape[1] * px_b1
                     + 6 * int((got[0] != 0).sum()))
-    c_bound = bound(nbytes(cargs[0], cargs[1], c_got))
+    c_bound = bound(nbytes(cargs[0], cargs[1], c_got24))
     f_bound = bound(nbytes(fargs[0], fargs[1], f_got))
     kernels = [
         dict(name="epoch_word", route="cuda",
@@ -789,7 +872,8 @@ def main():
              replaces="pcseg_tpu/ops/connectivity.py:296",
              launches=counts32["ccl_gated"], max_abs_err=c_err,
              ms=c_ms, ms_per_call_of_10=c_10, plain_ms=c_plain,
-             bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None),
+             bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
+             rounds_run=c_rounds),
         dict(name="flood_packed", route="cuda",
              source="pcseg_tpu_torch/csrc/flood_packed.cu",
              replaces="pcseg_tpu/models/planar_batched.py:133",

@@ -1,6 +1,8 @@
 // Segmented OR-flood of packed bit-planes, run to its fixed point inside one
 // persistent cooperative launch: the flood that the closure-epoch kernel
-// (epoch_word.cu) and the packed flood (flood_packed.cu) share.
+// (epoch_word.cu) and the packed flood (flood_packed.cu) share. The gated
+// CCL (ccl_gated.cu) shares the launch plan (make_plan, prepare, launch),
+// the flag rotation (begin_round) and the row scheduling (for_rows).
 //
 // State: N planes of [H, W] 32-bit words; bit j of a word is an independent
 // flood. One round spreads every set bit through its whole run of gate bits
@@ -103,10 +105,11 @@ struct Plan {
 
 // Plan for [H, W] planes with at least `min_smem` bytes of dynamic shared
 // memory (for the caller's other phases), within `max_smem` bytes; a row
-// or a column strip that does not fit is scanned in place. An error only
-// when `min_smem` itself does not fit.
+// or a column strip that does not fit is scanned in place. A staged column
+// strip holds `strip_words` words per row (the flood's: gate and reach of
+// 32 columns). An error only when `min_smem` itself does not fit.
 inline cudaError_t make_plan(int H, int W, size_t min_smem, size_t max_smem,
-                             Plan* pl) {
+                             Plan* pl, int strip_words = 2 * 32) {
   if (H <= 0 || W <= 0 || min_smem > max_smem) return cudaErrorInvalidValue;
   pl->H = H;
   pl->W = W;
@@ -116,7 +119,7 @@ inline cudaError_t make_plan(int H, int W, size_t min_smem, size_t max_smem,
   // padded layout (even chunk, so chunk >= 2) divides
   pl->magic = pl->chunk > 1 ? 0xffffffffu / pl->chunk + 1 : 0u;
   pl->seg = (H + kWarps - 1) / kWarps;
-  const size_t col = 2 * (size_t)H * 32 * sizeof(unsigned);
+  const size_t col = (size_t)strip_words * H * sizeof(unsigned);
   const size_t row = 2 * 32 * (size_t)pl->stride * sizeof(unsigned);
   pl->row_staged = row <= max_smem;
   pl->col_staged = col <= max_smem;
@@ -134,9 +137,9 @@ inline cudaError_t make_plan(int H, int W, size_t min_smem, size_t max_smem,
 }
 
 // One launch configuration per library, computed on first use and again
-// only when the device or the plane shape changes.
+// only when the device, the plane shape or the strip width changes.
 struct Launch {
-  int dev = -1, H = 0, W = 0;
+  int dev = -1, H = 0, W = 0, strip = 0;
   int blocks = 0;
   const void* kernel = nullptr;
   Plan plan;
@@ -146,14 +149,16 @@ struct Launch {
 // plan stages every row and strip and the caller's other phases allow it,
 // else `in_place`), its opt-in dynamic shared memory, and the grid of as
 // many blocks as can be co-resident (a cooperative launch needs them all
-// resident at once).
+// resident at once). `strip_words` as for make_plan.
 template <typename Kernel>
 inline cudaError_t prepare(Kernel staged, Kernel in_place, int H, int W,
-                           size_t min_smem, bool need_in_place, Launch* c) {
+                           size_t min_smem, bool need_in_place, Launch* c,
+                           int strip_words = 2 * 32) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (c->dev == dev && c->H == H && c->W == W) return cudaSuccess;
+  if (c->dev == dev && c->H == H && c->W == W && c->strip == strip_words)
+    return cudaSuccess;
   int optin, sms, coop;
   if ((e = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
@@ -169,7 +174,7 @@ inline cudaError_t prepare(Kernel staged, Kernel in_place, int H, int W,
     cudaFuncAttributes fa;
     if ((e = cudaFuncGetAttributes(&fa, kernel)) ||
         (e = make_plan(H, W, min_smem, (size_t)optin - fa.sharedSizeBytes,
-                       &pl)))
+                       &pl, strip_words)))
       return e;
     if (kernel == in_place || (pl.row_staged && pl.col_staged)) break;
     kernel = in_place;  // plan again with its own static shared memory
@@ -186,6 +191,7 @@ inline cudaError_t prepare(Kernel staged, Kernel in_place, int H, int W,
   c->dev = dev;
   c->H = H;
   c->W = W;
+  c->strip = strip_words;
   c->blocks = per_sm * sms;
   c->kernel = (const void*)kernel;
   c->plan = pl;
@@ -198,6 +204,47 @@ inline cudaError_t launch(const Launch& c, Args* args, cudaStream_t s) {
   void* params[] = {args};
   return cudaLaunchCooperativeKernel(c.kernel, dim3(c.blocks),
                                      dim3(kThreads), params, c.plan.smem, s);
+}
+
+// Start of round r of a loop to the fixed point over N planes, each with
+// a flag in three rotating buffers of N ints (see the header comment):
+// `cur` is the buffer round r raises, `last` the one round r - 1 raised.
+// Returns false, uniformly over the grid, when round r - 1 changed no
+// plane; otherwise block 0 clears round r + 1's buffer and records r + 1 in
+// rounds_run (when not null) for each plane that runs round r.
+__device__ __forceinline__ bool begin_round(int r, int N, int* flags,
+                                            int* rounds_run, int** cur,
+                                            const int** last) {
+  *cur = flags + (r % 3) * N;
+  *last = flags + ((r + 2) % 3) * N;
+  if (r > 0) {  // every block reads the same flags: a uniform stop
+    int any = 0;
+    for (int p = threadIdx.x; p < N; p += blockDim.x)
+      any |= __ldcg(*last + p);
+    if (!__syncthreads_or(any)) return false;
+  }
+  if (blockIdx.x == 0) {
+    int* next = flags + ((r + 1) % 3) * N;
+    for (int p = threadIdx.x; p < N; p += blockDim.x) {
+      next[p] = 0;
+      if (rounds_run && (r == 0 || __ldcg(*last + p))) rounds_run[p] = r + 1;
+    }
+  }
+  return true;
+}
+
+// fn(row) for each of `rows` rows, one warp per row: neighbouring rows on
+// neighbouring SMs, the plan's row_warps warps of each block. fn ends with
+// a __syncwarp where it reuses a warp's staging area.
+template <typename Fn>
+__device__ __forceinline__ void for_rows(const Plan& pl, long long rows,
+                                         Fn fn) {
+  const int warp = threadIdx.x >> 5;
+  if (warp >= pl.row_warps) return;
+  const long long step = (long long)gridDim.x * pl.row_warps;
+  for (long long row = (long long)warp * gridDim.x + blockIdx.x; row < rows;
+       row += step)
+    fn(row);
 }
 
 // A word of the flood state: from shared memory, or from L2 (words written
@@ -454,39 +501,23 @@ __device__ void flood(cg::grid_group& grid, const Plan& pl, unsigned* smem,
   unsigned* sv = sg + 32 * pl.stride;
 
   for (int r = 0; r < cap; ++r) {
-    int* cur = flags + (r % 3) * N;
-    const int* last = flags + ((r + 2) % 3) * N;
-    if (r > 0) {  // every block reads the same flags: a uniform stop
-      int any = 0;
-      for (int p = threadIdx.x; p < N; p += blockDim.x)
-        any |= __ldcg(last + p);
-      if (!__syncthreads_or(any)) break;
-    }
-    if (blockIdx.x == 0) {
-      int* next = flags + ((r + 1) % 3) * N;
-      for (int p = threadIdx.x; p < N; p += blockDim.x) {
-        next[p] = 0;
-        if (rounds_run && (r == 0 || __ldcg(last + p))) rounds_run[p] = r + 1;
-      }
-    }
+    int* cur;
+    const int* last;
+    if (!begin_round(r, N, flags, rounds_run, &cur, &last)) break;
 
     const unsigned* in = r == 0 ? src : reach;
-    if (warp < pl.row_warps) {  // neighbouring rows on neighbouring SMs
-      const long long step = (long long)gridDim.x * pl.row_warps;
-      for (long long row = (long long)warp * gridDim.x + blockIdx.x;
-           row < rows; row += step) {
-        const int p = (int)(row / H);
-        if (r > 0 && !__ldcg(last + p)) continue;  // uniform in the warp
-        const size_t off = (size_t)row * W;
-        if (kStaged || pl.row_staged)
-          row_pass<true>(pl, gate + off, in + off, reach + off, cur + p, sg,
-                         sv);
-        else
-          row_pass<false>(pl, gate + off, in + off, reach + off, cur + p, sg,
-                          sv);
-        __syncwarp();  // the staging area is reused by the next row
-      }
-    }
+    for_rows(pl, rows, [&](long long row) {
+      const int p = (int)(row / H);
+      if (r > 0 && !__ldcg(last + p)) return;  // uniform in the warp
+      const size_t off = (size_t)row * W;
+      if (kStaged || pl.row_staged)
+        row_pass<true>(pl, gate + off, in + off, reach + off, cur + p, sg,
+                       sv);
+      else
+        row_pass<false>(pl, gate + off, in + off, reach + off, cur + p, sg,
+                        sv);
+      __syncwarp();  // the staging area is reused by the next row
+    });
     grid.sync();
 
     for (int item = blockIdx.x; item < N * strips; item += gridDim.x) {

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from pcseg_tpu_torch.kernels import ccl_gated
-from pcseg_tpu_torch.kernels.common import shift2 as _shift2
 
 
 def colmajor_index_grid(h, w, device=None):
@@ -35,22 +34,33 @@ def window_offsets(half_window):
 
 def _gate_bits(points, eligible, squared_threshold, offsets):
     """[B, H, W] int32 word: bit o set iff the edge to ``offsets[o]``
-    passes (both ends eligible, ||p - q||^2 < tau). len(offsets) <= 32."""
-    gate = torch.zeros(points.shape[:3], dtype=torch.int32,
-                       device=points.device)
-    thr = torch.tensor(squared_threshold, dtype=points.dtype,
-                       device=points.device)
-    for o, (dr, dc) in enumerate(offsets):
-        d = _shift2_pts(points, dr, dc) - points
-        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-        ok = (d2 < thr) & eligible & _shift2(eligible, dr, dc, False)
-        gate |= ok.to(torch.int32) << o
-    return gate
+    passes (both ends eligible, ||p - q||^2 < tau). len(offsets) <= 32.
 
-
-def _shift2_pts(points, dr, dc):
-    """_shift2 on the [B, H, W] axes of a [B, H, W, 3] cloud (NaN fill)."""
-    return _shift2(points.movedim(-1, 1), dr, dc, float("nan")).movedim(1, -1)
+    All offsets at once: the cloud is padded once (NaN points, ineligible
+    cells) and the shifted views stacked, so a call costs a fixed number of
+    device ops; the distance keeps the per-offset f32 expression, so the
+    bits are those of one offset at a time."""
+    b, h, w = points.shape[:3]
+    dev = points.device
+    p = max(max(abs(dr), abs(dc)) for dr, dc in offsets)
+    padded = torch.full((b, h + 2 * p, w + 2 * p, 3), float("nan"),
+                        dtype=points.dtype, device=dev)
+    padded[:, p:p + h, p:p + w] = points
+    elig = torch.zeros((b, h + 2 * p, w + 2 * p), dtype=torch.bool,
+                       device=dev)
+    elig[:, p:p + h, p:p + w] = eligible
+    nb = torch.stack([padded[:, p + dr:p + dr + h, p + dc:p + dc + w]
+                      for dr, dc in offsets])
+    nb_elig = torch.stack([elig[:, p + dr:p + dr + h, p + dc:p + dc + w]
+                           for dr, dc in offsets])
+    thr = torch.tensor(squared_threshold, dtype=points.dtype, device=dev)
+    d = nb - points
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    ok = (d2 < thr) & eligible & nb_elig
+    # distinct bits: the int64 sum is their OR; bit 31 lands on the sign
+    bits = (ok.to(torch.int64) << torch.arange(
+        len(offsets), device=dev)[:, None, None, None]).sum(dim=0)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
 
 
 def connected_components_scan(points, eligible, squared_threshold,

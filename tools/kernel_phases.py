@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the persistent flood kernels goes, phase by phase.
+"""Where the time of the persistent kernels goes, phase by phase.
 
     python3 tools/kernel_phases.py
 
@@ -10,14 +10,18 @@ end), swaps them in for the wrappers' libraries, and prints one JSON line
 per case: the microseconds between stamps, in order. For ``epoch_word``
 (B1) they are the prelude, then a row pass and a column pass per flood
 round, then the claims and the finalize; for ``flood_packed`` (B3) the
-flags' reset, then a row and a column pass per round. Each gap includes
-the grid sync that ends it; one line gives the cost of a bare grid sync.
+flags' reset, then a row and a column pass per round; for ``ccl_gated``
+(B2) the flags' reset, then per round a row pass and the fused column and
+offset pass. Each gap includes the grid sync that ends it; one line gives
+the cost of a bare grid sync.
 The cases are the first closure epoch of the 32-slot VGA stream (room
 scene, B = 8, captured from a plain run) at caps 64 and 1 and with no slot
 alive, the first flood of the 64-slot stream (cluttered scene, N = 16 word
 planes, and its first 2), one staircase plane at cap 64, and 16 staircase
 planes that stop on their own after 95 to 470 rounds against 16 that all
-need 470 (what a whole-stack stop would cost). Needs a CUDA card and nvcc;
+need 470 (what a whole-stack stop would cost), the CCL of the 32-slot
+cluster stage (cluttered scene, B = 8) at cap 24 and the VGA serpentines
+of ``chip_smoke.py`` at cap 24 (which binds). Needs a CUDA card and nvcc;
 the stamps add a few instructions to block 0 and no launch.
 """
 
@@ -26,6 +30,8 @@ import json
 import os
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -80,6 +86,10 @@ STAMPS = {
     "flood_packed.cu": [("cg::this_grid();", "cg::this_grid();\n  STAMP();",
                          1),
                         ("grid.sync();", "grid.sync(); STAMP();", 1)],
+    # the staged instance stamps its flags' reset, row and fused passes; the
+    # other one's offset passes stamp too
+    "ccl_gated.cu": [("cg::this_grid();", "cg::this_grid();\n  STAMP();", 1),
+                     ("grid.sync();", "grid.sync(); STAMP();", 5)],
 }
 
 
@@ -102,7 +112,7 @@ def instrument(build):
     with open(os.path.join(OUT, "seg_flood.cuh"), "w") as f:
         f.write(stamped(build, "seg_flood.cuh"))
     libs = {}
-    for name in ("epoch_word", "flood_packed"):
+    for name in ("epoch_word", "flood_packed", "ccl_gated"):
         path = os.path.join(OUT, name + ".cu")
         with open(path, "w") as f:
             f.write(stamped(build, name + ".cu") + EXPORTS)
@@ -126,9 +136,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("tools/kernel_phases.py needs a CUDA card")
     import chip_smoke as cs
-    from pcseg_tpu_torch.kernels import build, epoch_word, flood_packed
+    from pcseg_tpu_torch.kernels import (build, ccl_gated, epoch_word,
+                                         flood_packed)
     from pcseg_tpu_torch.models import config, pipeline
-    from pcseg_tpu_torch.ops import unproject
+    from pcseg_tpu_torch.ops import connectivity, unproject
     from pcseg_tpu_torch.utils.synthetic import (
         synthetic_cluttered_room_cloud, synthetic_room_cloud)
 
@@ -165,6 +176,14 @@ def main():
         flood_packed, "flood_packed", lambda: pipeline.Segmenter(
             cfg64, device=dev, impl="plain").device_forward_stream(
                 batch(synthetic_cluttered_room_cloud, 1), rays, origin))
+    cargs = cs.capture(ccl_gated, "ccl_gated", lambda: pipeline.Segmenter(
+        device=dev, impl="plain").device_forward_stream(
+            batch(synthetic_cluttered_room_cloud, 1), rays, origin))
+    serp = [cs.serpentine(w), cs.serpentine(w // 2)]
+    sargs = cs.ccl_inputs(
+        torch, connectivity,
+        torch.from_numpy(np.stack([f[0] for f in serp])).to(dev),
+        torch.from_numpy(np.stack([f[1] for f in serp])).to(dev), 1.0, 1)
     empty = list(eargs)
     empty[5] = torch.zeros_like(eargs[5])  # no members
     empty[7] = torch.zeros_like(eargs[7])  # no slot alive
@@ -192,6 +211,10 @@ def main():
          lambda: flood_packed.flood_packed(*own, 600)),
         ("flood_packed staircases N=16 all 470", flood_packed,
          lambda: flood_packed.flood_packed(*same, 600)),
+        ("ccl_gated real B=8 cap24", ccl_gated,
+         lambda: ccl_gated.ccl_gated(*cargs)),
+        ("ccl_gated serpentines B=2 cap24", ccl_gated,
+         lambda: ccl_gated.ccl_gated(*sargs[:3], 24, sargs[3])),
     ]
     real_load = build.load
     # the wrappers load their libraries through build.load: hand them the
