@@ -68,6 +68,31 @@ final result line):
      ``segment_frame_stream`` ms/frame split into the device program and
      the host finalize, synced stage times and a torch.profiler window of
      the cluttered scene's paths.
+ 14. temporal seeds: frame 1 is the room scene (``segment_frame_stream``,
+     32 slots), frame 2 the same points after the sensor moved by 3
+     degrees about z and (0.05, 0.02, 0) m, through ``segment_frame`` with
+     frame 1's records and the pose, at 32 and 64 slots, counted like
+     phase 3: equal to the plain run and a rerun and to the committed JAX
+     golden ``jax_temporal_vga.npz`` under ``golden_mismatches``' rule
+     (OPTION_GOLDEN_CELLS), with the temporal seeds found and the regions
+     they founded; then B1 against its plain version on the epoch inputs
+     of that frame, whose rank grid must hold negative ranks;
+ 15. average-normal seeds: the cluttered VGA frame against its plain run,
+     a rerun and ``jax_options_vga.npz``; the VGA stream at B = 8 against
+     its plain run and a rerun; the 128x160 stream golden
+     ``jax_avg_stream_128x160.npz`` (frame 0 exact, frame 1 as
+     AVG_STREAM_KNOWN records);
+ 16. mean shift: the cluttered VGA frame with ``ClusterMethod.MEAN_SHIFT``,
+     which must take the native growth, against its plain run, a rerun and
+     ``jax_options_vga.npz``; the device growth on the card against the
+     host growth at 120x160 (labels agree on >= 99% of the cells, equal
+     region counts, the rule of tests/test_mean_shift.py);
+ 17. the cluster stage's CCL at half-window 3 (48 offsets, one bool gate
+     per offset) on the card, on the captured inputs of phase 5 (the
+     first frame), equal to the same call on the CPU;
+ 18. times: ms per frame of the temporal, average-normal and mean-shift
+     frames split into the device program and the host finalize, the
+     average-normal stream, the device mean shift and the 48-offset CCL.
 
 The line before the last lists the kernels with their bounds; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card, the CUDA
@@ -77,6 +102,7 @@ toolkit (nvcc) and a host C++ compiler; builds into
 
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -90,6 +116,7 @@ sys.path.insert(0, ROOT)
 
 H, W, B = 480, 640, 8
 REPS = 5
+OPTION_REPS = 3  # the timings of phases 14-18
 # moments: f32 products summed in f64 in two orders, then rounded to f32
 MOM_RTOL, MOM_ATOL = 1e-6, 1e-5
 PLANE_ATOL = 1e-4
@@ -117,6 +144,37 @@ GOLDEN_CELLS = {
                       [[377, 578], 1, 7], [[378, 577], 1, 7],
                       [[474, 33], 4, 3], [[475, 33], 4, 3]],
 }
+
+
+# The label cells where the port's frames of the other options differ from
+# their JAX goldens (jax_temporal_vga.npz, jax_options_vga.npz), as in
+# GOLDEN_CELLS: what the port computes on the CPU. The mean-shift frame
+# runs the 32-slot grower on the cluttered scene, so it has the six
+# tau-band cells of cluttered_k32; the one off the floor is left unclaimed
+# by the port's grower and then taken by a mean-shift cluster (id 6, 4
+# planar regions + cluster 2) where JAX's golden has planar region 3.
+OPTION_GOLDEN_CELLS = {
+    "temporal_frame1": [],
+    "temporal_k32": [],
+    "temporal_k64": [],
+    "avg": [],
+    "ms": [[[376, 577], 1, 7], [[377, 577], 1, 7], [[377, 578], 1, 7],
+           [[378, 577], 1, 7], [[474, 33], 6, 3], [[475, 33], 6, 3]],
+}
+# The average-normal stream golden (jax_avg_stream_128x160.npz, B = 2):
+# frame 0 is exact; on frame 1 (the scene jittered by 3 mm) the port's
+# closure epochs end with 13 device regions where JAX's end with 12, and
+# this many label cells differ: JAX sums the refit moments in f32, the port
+# in f64, and JAX with f64 sums gives the port's labels
+# (tests/test_torch_avg_seeds.py). The card must give what the port gives
+# on the CPU.
+AVG_STREAM_KNOWN = {1: dict(num_planar=13, golden_num_planar=12,
+                            cells=14645)}
+# the temporal frames' motion (tests/test_torch_golden_temporal.py)
+YAW_DEG = 3.0
+TRANS = (0.05, 0.02, 0.0)
+# the device mean shift's frame (phase 16)
+MS_DEVICE_SHAPE = (120, 160)
 
 
 def plane_tolerance(points):
@@ -850,6 +908,10 @@ def main():
 
     stage_profile(torch, card, segs, stream, scenes, rays, origin, pipeline)
 
+    opt_times = option_phases(
+        torch, card, dev, scenes, rays, origin, origin_d, rays_d, batches,
+        reset_counts, read_counts, kernels_mod, cpts)
+
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
     e_bound = bound(nbytes(*[a for a in eargs if torch.is_tensor(a)])
@@ -881,10 +943,357 @@ def main():
              ms=f_ms, ms_per_call_of_10=f_10, plain_ms=f_plain,
              bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
     ]
+    emit("times_options", card=card, **opt_times)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def temporal_config(config, k):
+    """The temporal frames' configuration: seeds from the previous
+    regions within 0.5 m and 0.2 rad, ``k`` slots."""
+    import dataclasses
+    return config.SegmenterConfig(planar=dataclasses.replace(
+        config.PlanarRegionConfig(max_regions=k),
+        max_distance_for_seed_point=0.5,
+        max_normal_difference_angle_for_seed_point=0.2))
+
+
+def moved_frame(points):
+    """Frame 1's points and sensor origin (0) after the sensor moved by
+    YAW_DEG about z and by TRANS: p' = R p + t elementwise in NumPy f32
+    (no BLAS, so every machine gives the same bits). The golden's
+    generator (tests/test_torch_golden_temporal.py) calls this too.
+    Returns (points, origin, quat wxyz, trans)."""
+    rad = math.radians(YAW_DEG)
+    c, s = np.float32(math.cos(rad)), np.float32(math.sin(rad))
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    t = np.float32(TRANS)
+    out = np.stack([c * x - s * y + t[0], s * x + c * y + t[1], z + t[2]],
+                   axis=-1).astype(np.float32)
+    quat = np.float32([math.cos(rad / 2), 0, 0, math.sin(rad / 2)])
+    return out, t.copy(), quat, t
+
+
+def golden_arrays(gold, prefix):
+    return {f[len(prefix):]: gold[f] for f in gold.files
+            if f.startswith(prefix) and not f.endswith("sha256")}
+
+
+def option_phases(torch, card, dev, scenes, rays, origin, origin_d, rays_d,
+                  batches, reset_counts, read_counts, kernels_mod, cpts):
+    """Phases 14-18: the temporal, average-normal and mean-shift frames at
+    VGA, the device mean shift, the 48-offset CCL, and their times.
+    Returns the times (phase 18)."""
+    import dataclasses
+    from pcseg_tpu_torch.kernels import epoch_word
+    from pcseg_tpu_torch.models import config, mean_shift, pipeline
+    from pcseg_tpu_torch.ops import connectivity, geom, seeds, unproject
+
+    t_start = time.perf_counter()
+    testdata = os.path.join(ROOT, "pcseg_tpu_torch", "testdata")
+
+    def check_frame(phase, res, res_plain, again, want, pts, known,
+                    counts, **extra):
+        got = pipeline.frame_arrays(res)
+        bad_plain = compare_frames(got, pipeline.frame_arrays(res_plain),
+                                   lambda r: PLANE_ATOL)
+        bad_plain += [("objects", "count")] \
+            if len(res.objects) != len(res_plain.objects) else []
+        again_a = pipeline.frame_arrays(again)
+        identical = all(np.array_equal(got[k], again_a[k]) for k in got)
+        bad_gold, cells, fits = golden_mismatches(got, want, pts, known)
+        emit(phase, metrics=got["metrics"].tolist(),
+             cluster_sizes=sorted(got["cluster_sizes"].tolist()),
+             objects=len(res.objects), launches=counts,
+             plain_mismatches=bad_plain, bit_identical_rerun=identical,
+             golden_mismatches=bad_gold, golden_cells_differing=cells,
+             fits_involved=fits, **extra)
+        if bad_plain or bad_gold or not identical:
+            fail(f"{phase}: disagrees with its plain run, its rerun or the "
+                 "JAX golden")
+
+    def counted(run):
+        run()  # warm-up
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return out, read_counts()
+
+    # 14. temporal frames: frame 1 is the room scene, frame 2 the same
+    # points after a known motion, seeded from frame 1's records
+    tgold = np.load(os.path.join(testdata, "jax_temporal_vga.npz"))
+    d16 = scenes["room"]
+    if hashlib.sha256(d16.tobytes()).digest() != \
+            tgold["depth_sha256"].tobytes():
+        fail("the room frame differs from the temporal golden's input")
+    pts1 = unproject.unproject_range_np(d16, rays)
+    pts2, origin2, quat, trans = moved_frame(pts1)
+    if hashlib.sha256(pts2.tobytes()).digest() != \
+            tgold["points2_sha256"].tobytes():
+        fail("frame 2 differs from the temporal golden's input")
+    pose = geom.Pose.from_arrays(quat, trans, dev)
+    tsegs = {k: (pipeline.Segmenter(temporal_config(config, k), device=dev),
+                 pipeline.Segmenter(temporal_config(config, k), device=dev,
+                                    impl="plain")) for k in (32, 64)}
+    f1 = tsegs[32][0].segment_frame_stream(d16, rays, origin)
+    bad1, cells1, _ = golden_mismatches(
+        pipeline.frame_arrays(f1), golden_arrays(tgold, "frame1__"), pts1,
+        OPTION_GOLDEN_CELLS["temporal_frame1"])
+    emit("temporal_frame1", metrics=pipeline.frame_arrays(f1)["metrics"]
+         .tolist(), golden_mismatches=bad1, golden_cells_differing=cells1)
+    if bad1:
+        fail("temporal frame 1 disagrees with the JAX golden")
+    prev = f1.planar_regions
+    t_found = []
+    real_last = seeds.seeds_from_last_regions
+
+    def spy_last(*a, **kw):
+        out = real_last(*a, **kw)
+        t_found.append((out[0].cpu().numpy(), out[1].cpu().numpy()))
+        return out
+
+    t_args = None
+    for k, (s, s_plain) in tsegs.items():
+        def run(s=s):
+            return s.segment_frame(pts2, origin2, None, prev, pose)
+        seeds.seeds_from_last_regions = spy_last
+        try:
+            res, counts = counted(run)
+        finally:
+            seeds.seeds_from_last_regions = real_last
+        t_idx, found = t_found[-1][0][0], t_found[-1][1][0]
+        founded = {int(r.seed_point_index) for r in res.planar_regions} \
+            & set(t_idx[found].tolist())
+        plain_out = []
+
+        def run_plain(s_plain=s_plain):
+            plain_out.append(s_plain.segment_frame(pts2, origin2, None,
+                                                   prev, pose))
+        if k == 32:  # B1's inputs: the first epoch of the plain run
+            t_args = capture(epoch_word, "epoch_word", run_plain)
+        else:
+            run_plain()
+        res_plain = plain_out[0]
+        check_frame("temporal_frame_vs_plain_and_golden", res, res_plain,
+                    run(), golden_arrays(tgold, f"k{k}__"), pts2,
+                    OPTION_GOLDEN_CELLS[f"temporal_k{k}"], counts, slots=k,
+                    temporal_seeds_found=int(found.sum()),
+                    regions_founded_by_temporal_seeds=len(founded))
+        need = "epoch_word" if k == 32 else "flood_packed"
+        if counts[need] <= 0 or counts["ccl_gated"] <= 0:
+            fail(f"the temporal frame at {k} slots did not launch {need} "
+                 "and ccl_gated")
+    # B1 on the captured epoch of the temporal frame (negative ranks)
+    if not bool((t_args[3] < 0).any()):
+        fail("the temporal frame's rank grid holds no negative ranks")
+    e_got = epoch_word.epoch_word(*t_args)
+    e_want = epoch_word.epoch_word(*t_args, impl="plain")
+    torch.cuda.synchronize()
+    exact = all(bool(torch.equal(g, w)) for g, w in zip(e_got[:4],
+                                                         e_want[:4]))
+    mom_ok = bool(torch.allclose(e_got[4], e_want[4], rtol=MOM_RTOL,
+                                 atol=MOM_ATOL, equal_nan=True))
+    emit("epoch_word_negative_ranks", exact_words_counts=exact,
+         moments_ok=mom_ok, negative_rank_cells=int((t_args[3] < 0).sum()),
+         min_rank=int(t_args[3].min()),
+         negative_slot_ranks=int((e_got[2] < 0).sum()))
+    if not (exact and mom_ok):
+        fail("epoch_word disagrees with its plain version on negative ranks")
+
+    # 15. average-normal seeds: the VGA frame, the VGA stream at B = 8 and
+    # the 128x160 stream golden
+    ogold = np.load(os.path.join(testdata, "jax_options_vga.npz"))
+    avg_cfg = config.SegmenterConfig(seed_method="average_normals")
+    ms_cfg = config.SegmenterConfig(cluster=dataclasses.replace(
+        config.ClusterRegionConfig(),
+        cluster_method=config.ClusterMethod.MEAN_SHIFT))
+    osegs = {name: (pipeline.Segmenter(c, device=dev),
+                    pipeline.Segmenter(c, device=dev, impl="plain"))
+             for name, c in (("avg", avg_cfg), ("ms", ms_cfg))}
+    dc = scenes["cluttered"]
+    ptsc = unproject.unproject_range_np(dc, rays)
+    for name in ("avg", "ms"):
+        if hashlib.sha256(dc.tobytes()).digest() != \
+                ogold[f"{name}__depth_sha256"].tobytes():
+            fail(f"the cluttered frame differs from the {name} golden's input")
+    s, s_plain = osegs["avg"]
+    res, counts = counted(lambda: s.segment_frame_stream(dc, rays, origin))
+    check_frame("avg_frame_vs_plain_and_golden", res,
+                s_plain.segment_frame_stream(dc, rays, origin),
+                s.segment_frame_stream(dc, rays, origin),
+                golden_arrays(ogold, "avg__"), ptsc,
+                OPTION_GOLDEN_CELLS["avg"], counts)
+    if counts["epoch_word"] <= 0 or counts["ccl_gated"] <= 0:
+        fail("the average-normal frame did not launch epoch_word and "
+             "ccl_gated")
+    a_out, a_counts = counted(lambda: s.device_forward_stream(
+        batches["cluttered"], rays_d, origin_d))
+    p_out = s_plain.device_forward_stream(batches["cluttered"], rays_d,
+                                          origin_d)
+    again = s.device_forward_stream(batches["cluttered"], rays_d, origin_d)
+    torch.cuda.synchronize()
+    same_plain = all(torch.equal(a_out[i], p_out[i]) for i in range(3))
+    plane_err = float((a_out[3] - p_out[3]).abs().max())
+    identical = all(torch.equal(x, y) for x, y in zip(a_out, again))
+    emit("avg_stream_vs_plain", num_planar=a_out[1].tolist(),
+         num_clusters=a_out[2].tolist(), launches=a_counts,
+         labels_counts_equal=same_plain, planes_max_abs_err=plane_err,
+         atol=PLANE_ATOL, bit_identical_rerun=identical)
+    if not (same_plain and plane_err <= PLANE_ATOL and identical
+            and a_counts["epoch_word"] > 0 and a_counts["ccl_gated"] > 0
+            and bool((a_out[1] > 0).all())):
+        fail("the average-normal stream disagrees with its plain run or "
+             "rerun, or did not launch its kernels")
+    sgold = np.load(os.path.join(testdata, "jax_avg_stream_128x160.npz"))
+    gh, gw = sgold["depth"].shape[1:]
+    g_rays = unproject.camera_ray_table(gh, gw, f=float(gh))
+    g_out = [t.cpu().numpy() for t in s.device_forward_stream(
+        torch.from_numpy(sgold["depth"]).to(dev),
+        torch.from_numpy(g_rays).to(dev), origin_d)]
+    lab_ok = bool((g_out[2] == sgold["num_clusters"]).all())
+    per_frame = []
+    for b in range(g_out[0].shape[0]):
+        cells = int((g_out[0][b] != sgold["labels"][b]).sum())
+        got_b = dict(num_planar=int(g_out[1][b]),
+                     golden_num_planar=int(sgold["num_planar"][b]),
+                     cells=cells)
+        per_frame.append(got_b)
+        known = AVG_STREAM_KNOWN.get(b)
+        lab_ok &= got_b == known if known else \
+            (cells == 0 and got_b["num_planar"] == got_b["golden_num_planar"])
+    g_pts = unproject.unproject_range_np(sgold["depth"], g_rays)
+    worst = max((float(np.abs(g_out[3][b, r] - sgold["planes"][b, r]).max())
+                 / plane_tolerance(g_pts[b][sgold["labels"][b] == r])
+                 for b in range(g_out[0].shape[0]) if b not in AVG_STREAM_KNOWN
+                 for r in range(int(sgold["num_planar"][b]))), default=0.0)
+    emit("avg_stream_jax_golden", frames=per_frame, known=AVG_STREAM_KNOWN,
+         labels_counts_as_known=lab_ok, planes_worst_err_over_tolerance=worst)
+    if not (lab_ok and worst <= 1.0):
+        fail("the average-normal stream disagrees with its JAX golden "
+             "beyond the known frame")
+
+    # 16. mean shift: the VGA frame (native growth), then the device
+    # growth on the card against the host growth at 120x160
+    native_calls = []
+    real_native = mean_shift._sliding_mean_shift_native
+
+    def spy_native(*a, **kw):
+        native_calls.append(1)
+        return real_native(*a, **kw)
+
+    s, s_plain = osegs["ms"]
+    mean_shift._sliding_mean_shift_native = spy_native
+    try:
+        res, counts = counted(lambda: s.segment_frame_stream(dc, rays,
+                                                             origin))
+        if not native_calls:
+            fail("the mean-shift frame did not take the native growth")
+        check_frame("mean_shift_frame_vs_plain_and_golden", res,
+                    s_plain.segment_frame_stream(dc, rays, origin),
+                    s.segment_frame_stream(dc, rays, origin),
+                    golden_arrays(ogold, "ms__"), ptsc,
+                    OPTION_GOLDEN_CELLS["ms"], counts,
+                    native_growth_calls=len(native_calls))
+    finally:
+        mean_shift._sliding_mean_shift_native = real_native
+    if counts["epoch_word"] <= 0 or counts["ccl_gated"] != 0:
+        fail("the mean-shift frame must launch epoch_word and not the "
+             f"euclidean cluster stage's ccl_gated: {counts}")
+    mh, mw = MS_DEVICE_SHAPE
+    from pcseg_tpu_torch.utils.synthetic import synthetic_cluttered_room_cloud
+    m16 = unproject.encode_range(synthetic_cluttered_room_cloud(
+        mh, mw, f=float(mh), seed=1)[0])
+    mpts = unproject.unproject_range_np(
+        m16, unproject.camera_ray_table(mh, mw, f=float(mh)))
+    mres = pipeline.Segmenter(device=dev).segment_frame(mpts, origin)
+    n_pl = mres.metrics.num_planar_regions
+    # the frame's planar labels; the mean shift clusters the rest
+    mlab = np.where(mres.labels >= n_pl, config.UNLABELED,
+                    mres.labels).astype(np.int32)
+    grown = {}
+    for growth in ("device", "host"):
+        lab = mlab.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        regions = mean_shift.sliding_mean_shift(
+            mpts, lab, config.ClusterRegionConfig(), 5, n_pl,
+            growth=growth, device=dev)
+        torch.cuda.synchronize()
+        grown[growth] = (lab, regions, (time.perf_counter() - t0) * 1e3)
+    agree = float((grown["device"][0] == grown["host"][0]).mean())
+    emit("device_mean_shift_vs_host", shape=[mh, mw], agreement=agree,
+         regions=[len(grown[g][1]) for g in ("device", "host")],
+         device_ms=grown["device"][2], host_growth_ms=grown["host"][2],
+         card=card)
+    if agree < 0.99 or len(grown["device"][1]) != len(grown["host"][1]):
+        fail("the device mean shift disagrees with the host growth")
+
+    # 17. the cluster stage's CCL at half-window 3 (48 offsets, the
+    # bool-gate rounds) on the card against the same call on the CPU (the
+    # first frame: the CPU call is the phase's cost)
+    c_pts, c_elig, c_thr = (a[:1] if torch.is_tensor(a) else a
+                            for a in cpts[:3])
+    on_card = connectivity.connected_components_scan(c_pts, c_elig, c_thr, 3)
+    on_cpu = connectivity.connected_components_scan(c_pts.cpu(),
+                                                    c_elig.cpu(), c_thr, 3)
+    same = bool(torch.equal(on_card.cpu(), on_cpu))
+    live = on_cpu < on_cpu.shape[1] * on_cpu.shape[2]
+    ccl48_ms = cuda_ms(torch, lambda: connectivity.connected_components_scan(
+        c_pts, c_elig, c_thr, 3), reps=OPTION_REPS)
+    emit("ccl_48_offsets_card_vs_cpu", shape=list(c_elig.shape), equal=same,
+         components=int(torch.unique(on_cpu[live]).numel()), ms=ccl48_ms,
+         card=card)
+    if not same:
+        fail("the 48-offset CCL on the card differs from the CPU's")
+
+    # 18. times: ms per frame, device program and host finalize
+    def split_times(s, run_payload, finalize, whole):
+        dev_ms = cuda_ms(torch, run_payload, reps=OPTION_REPS)
+        host, total = [], []
+        for _ in range(OPTION_REPS):
+            payload = run_payload()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            finalize(payload)
+            host.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            whole()
+            torch.cuda.synchronize()
+            total.append((time.perf_counter() - t0) * 1e3)
+        return dict(device_ms=dev_ms,
+                    host_finalize_ms=statistics.median(host),
+                    whole_ms=statistics.median(total))
+
+    times = {}
+    pts2_d = torch.from_numpy(pts2).to(dev)[None]
+    o2_d = torch.from_numpy(origin2).to(dev)
+    for k, (s, _) in tsegs.items():
+        tables = s._temporal_tables(prev, pose)
+        times[f"temporal_k{k}"] = split_times(
+            s, lambda s=s, tables=tables: s._payload(pts2_d, o2_d, None, None,
+                                                     tables),
+            lambda p, s=s: s._host_finalize(
+                pts2, p, None, lambda lab: s._clusters(pts2_d, lab)),
+            lambda s=s: s.segment_frame(pts2, origin2, None, prev, pose))
+    dc_d = unproject.unproject_range(torch.from_numpy(dc).to(dev)[None],
+                                     rays_d)
+    for name, (s, _) in osegs.items():
+        times[f"{name}_frame"] = split_times(
+            s, lambda s=s: s._payload(dc_d, origin_d, None, None),
+            lambda p, s=s: s._host_finalize(
+                ptsc, p, None, lambda lab: s._clusters(dc_d, lab)),
+            lambda s=s: s.segment_frame_stream(dc, rays, origin))
+    times["avg_stream_b8_ms_per_batch"] = cuda_ms(
+        torch, lambda: osegs["avg"][0].device_forward_stream(
+            batches["cluttered"], rays_d, origin_d), reps=OPTION_REPS)
+    times["device_mean_shift"] = dict(shape=[mh, mw],
+                                      ms=grown["device"][2],
+                                      host_growth_ms=grown["host"][2])
+    times["ccl_48_offsets_ms"] = ccl48_ms
+    times["phases_14_to_18_seconds"] = time.perf_counter() - t_start
+    return times
 
 
 def stage_profile(torch, card, segs, stream, scenes, rays, origin,

@@ -18,7 +18,7 @@
 //   3. claims + partials: each reached cell keeps the bits of the min-rank
 //      slot; per slot, each 256-thread group sums its 1024 cells' count and
 //      the 10 plane-fit moments (f32 products, f64 sums) and takes the min
-//      64-bit key (seed rank << 32 | col-major index), four groups per
+//      64-bit key (seed rank * 2^32 + col-major index), four groups per
 //      block on their own barriers;
 //   4. finalize (a warp per frame, slot and field): per slot, the
 //      partials summed in their fixed order.
@@ -54,7 +54,14 @@ using seg_flood::kWarps;
 constexpr int kMaxSlots = 32;
 constexpr int kInfRank = 1 << 30;
 constexpr int kBigLin = 1 << 30;
-constexpr long long kInfKey = ((long long)kInfRank << 32) | kBigLin;
+// (rank, col-major index) as one key whose minimum is the lexicographic one:
+// rank * 2^32 + index, with 0 <= index < 2^30. Ranks may be negative (the
+// temporal seeds rank -1, -2, ...), so no left shift of a signed value;
+// key >> 32 (arithmetic) gives the rank back, the low word the index.
+__host__ __device__ constexpr long long claim_key(int rank, int index) {
+  return (long long)rank * 4294967296LL + (long long)index;
+}
+constexpr long long kInfKey = claim_key(kInfRank, kBigLin);
 constexpr int kGroup = 256;  // threads of a claims group
 constexpr int kGroups = seg_flood::kThreads / kGroup;
 constexpr int kGroupWarps = kGroup / 32;
@@ -264,8 +271,7 @@ __device__ void claims_partials(const EpochArgs& a, unsigned* smem) {
           c_x[cell] = a.px[idx];
           c_y[cell] = a.py[idx];
           c_z[cell] = a.pz[idx];
-          c_key[cell] = ((long long)a.rank[idx] << 32)
-                        | (unsigned)(c * a.H + r);
+          c_key[cell] = claim_key(a.rank[idx], c * a.H + r);
         }
       }
       c_w[cell] = nw;

@@ -40,38 +40,8 @@ def ccl_gated_plain(gate, labels0, offsets, rounds, big):
     offset exchanges, batched over the leading frame axis. Returns (labels,
     rounds_run per frame: the first round plus one per round that changed
     the frame before the last, as the kernel's per-frame stop counts)."""
-    o_row = offsets.index((0, -1))
-    o_col = offsets.index((-1, 0))
-    row_reset = ((gate >> o_row) & 1) == 0
-    col_reset = ((gate >> o_col) & 1) == 0
-    # backward scans: the edge to the next cell is that cell's bit
-    row_reset_rev = common.shift2(row_reset, 0, 1, True)
-    col_reset_rev = common.shift2(col_reset, 1, 0, True)
     oks = [((gate >> o) & 1) == 1 for o in range(len(offsets))]
-
-    def one_round(lab):
-        lab = torch.minimum(
-            common.seg_min_scan(lab, row_reset, -1, False, big),
-            common.seg_min_scan(lab, row_reset_rev, -1, True, big))
-        lab = torch.minimum(
-            common.seg_min_scan(lab, col_reset, -2, False, big),
-            common.seg_min_scan(lab, col_reset_rev, -2, True, big))
-        for (dr, dc), ok in zip(offsets, oks):
-            nb = common.shift2(lab, dr, dc, big)
-            lab = torch.minimum(lab, torch.where(ok, nb, big))
-        return lab
-
-    prev, lab = labels0, one_round(labels0)
-    ran = torch.ones(gate.shape[0], dtype=torch.int32, device=gate.device)
-    it = 1
-    while it < rounds:
-        moved = (lab != prev).flatten(1).any(dim=1)
-        if not bool(moved.any()):
-            break
-        ran += moved.to(torch.int32)
-        prev, lab = lab, one_round(lab)
-        it += 1
-    return lab, ran
+    return common.ccl_rounds(oks, labels0, offsets, rounds, big)
 
 
 def ccl_gated(gate: torch.Tensor, labels0: torch.Tensor, offsets, rounds: int,

@@ -1,6 +1,6 @@
 """Shared pieces of the kernel wrappers: grid shifts, segmented
-Hillis-Steele scans and the OR-flood for the plain PyTorch versions, and
-argument checks.
+Hillis-Steele scans, the OR-flood and the CCL rounds for the plain PyTorch
+versions, and argument checks.
 """
 
 from __future__ import annotations
@@ -99,6 +99,44 @@ def or_flood(gate, reach0, rounds):
         prev, reach = reach, one_round(reach)
         it += 1
     return reach, ran
+
+
+def ccl_rounds(oks, labels0, offsets, rounds, big):
+    """Gated CCL rounds over [B, H, W] labels, one bool gate per window
+    offset (``oks[o]``: the edge to ``offsets[o]`` passes): row segmented
+    min-scans forward and backward on the (0, -1) gate, then the columns' on
+    the (-1, 0) gate, then each offset's min-exchange in order. The first
+    round always runs; rounds repeat while the batch changed, at most
+    ``rounds``. Returns (labels, rounds_run per frame: the first round plus
+    one per round that changed the frame before the last)."""
+    row_reset = ~oks[offsets.index((0, -1))]
+    col_reset = ~oks[offsets.index((-1, 0))]
+    # backward scans: the edge to the next cell is that cell's gate
+    row_reset_rev = shift2(row_reset, 0, 1, True)
+    col_reset_rev = shift2(col_reset, 1, 0, True)
+
+    def one_round(lab):
+        lab = torch.minimum(seg_min_scan(lab, row_reset, -1, False, big),
+                            seg_min_scan(lab, row_reset_rev, -1, True, big))
+        lab = torch.minimum(seg_min_scan(lab, col_reset, -2, False, big),
+                            seg_min_scan(lab, col_reset_rev, -2, True, big))
+        for (dr, dc), ok in zip(offsets, oks):
+            nb = shift2(lab, dr, dc, big)
+            lab = torch.minimum(lab, torch.where(ok, nb, big))
+        return lab
+
+    prev, lab = labels0, one_round(labels0)
+    ran = torch.ones(labels0.shape[0], dtype=torch.int32,
+                     device=labels0.device)
+    it = 1
+    while it < rounds:
+        moved = (lab != prev).flatten(1).any(dim=1)
+        if not bool(moved.any()):
+            break
+        ran += moved.to(torch.int32)
+        prev, lab = lab, one_round(lab)
+        it += 1
+    return lab, ran
 
 
 def check(name, t, dtype, shape, device):

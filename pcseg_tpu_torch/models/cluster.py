@@ -45,17 +45,24 @@ def segment_clusters(points: torch.Tensor, labels: torch.Tensor,
                      impl=None) -> ClusterResult:
     """Cluster the UNLABELED finite cells of [B, H, W, 3] ``points`` with
     canonical seeds (the pipeline's cluster closure; the JAX call with
-    ``canonical_seeds=True``). ``impl="plain"`` forces the CCL's plain
-    version (tests and the smoke script only)."""
-    if config.ccl_mode != "scan":
-        raise NotImplementedError("only ccl_mode='scan' is ported")
+    ``canonical_seeds=True``). ``config.ccl_mode`` picks the scan CCL
+    (``"scan"``) or the window CCL with pointer jumping (``"while"``).
+    ``impl="plain"`` forces the CCL kernel's plain version (tests and the
+    smoke script only)."""
     b, h, w = points.shape[:3]
     hw = h * w
     dev = points.device
     eligible = (labels == UNLABELED) & nansafe.all_finite(points)
-    roots = connectivity.connected_components_scan(
-        points, eligible, config.squared_distance_threshold,
-        config.half_search_window, rounds=config.scan_rounds, impl=impl)
+    if config.ccl_mode == "scan":
+        roots = connectivity.connected_components_scan(
+            points, eligible, config.squared_distance_threshold,
+            config.half_search_window, rounds=config.scan_rounds, impl=impl)
+    elif config.ccl_mode == "while":
+        roots = connectivity.connected_components_window(
+            points, eligible, config.squared_distance_threshold,
+            config.half_search_window)
+    else:
+        raise ValueError(f"unknown ccl_mode {config.ccl_mode!r}")
     lin_grid = connectivity.colmajor_index_grid(h, w, dev)
     max_regions = config.max_regions
     win_r = config.half_search_window * (config.min_region_inliers - 1)
@@ -84,10 +91,8 @@ def segment_clusters(points: torch.Tensor, labels: torch.Tensor,
             roots=roots)
 
     # per-root sizes (roots are col-major indices; H*W = ineligible)
-    sizes = torch.zeros((b, hw + 1), dtype=torch.int32, device=dev)
-    sizes.scatter_add_(1, roots.reshape(b, -1).long(),
-                       eligible.reshape(b, -1).to(torch.int32))
-    sizes = sizes[:, :hw]
+    sizes = connectivity.segment_field(eligible.to(torch.int32), roots,
+                                       eligible)
     accepted = sizes >= config.min_region_inliers
     region_id_by_root = torch.where(
         accepted, torch.cumsum(accepted.to(torch.int32), 1,

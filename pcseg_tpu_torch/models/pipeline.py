@@ -8,10 +8,13 @@
     ``segment_frame_stream`` (u16 range frame): the device program
     (growth, clusters on the device labels, the discontinuity flags), then
     the host finalize (boundary, hull and area gates, classification,
-    clustering again if the finalize rejected a region, detected objects).
+    clustering again if the finalize rejected a region, or the mean shift,
+    detected objects).
 
-Temporal seeds (``prev_regions``) and mean-shift clustering are not ported
-yet and raise NotImplementedError.
+Seeds come from the plane-support rank grid or, with
+``seed_method="average_normals"``, from the average-normal seed vector,
+grown through the same rank grid. ``segment_frame(prev_regions=...)`` adds
+the previous frame's regions as temporal seeds, which pop first.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from pcseg_tpu_torch import native
 from pcseg_tpu_torch.models import (boundary, classify, cluster, extract,
-                                    planar_batched)
+                                    mean_shift, planar_batched)
 from pcseg_tpu_torch.models.config import (
     SEMANTIC_UNKNOWN, UNLABELED, ClusterMethod, SegmenterConfig)
-from pcseg_tpu_torch.ops import discontinuity
+from pcseg_tpu_torch.ops import discontinuity, geom
 from pcseg_tpu_torch.ops import normals as normals_op
 from pcseg_tpu_torch.ops import seeds as seeds_op
 from pcseg_tpu_torch.ops import unproject
@@ -65,8 +69,8 @@ class Segmenter:
 
     def __init__(self, config: SegmenterConfig = SegmenterConfig(),
                  device=None, impl=None):
-        if config.seed_method != "plane_support":
-            raise NotImplementedError("only plane_support seeds are ported")
+        if config.seed_method not in ("plane_support", "average_normals"):
+            raise ValueError(f"unknown seed_method {config.seed_method!r}")
         if config.planar.growth_mode != "batched":
             raise NotImplementedError("only the batched grower is ported")
         if device is None:
@@ -83,21 +87,61 @@ class Segmenter:
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def _planar(self, points, sensor_origin, labels0=None):
-        """[B, H, W, 3] points -> (normals, ranked seeds, planar regions)."""
+    def _rank_seeds(self, points, normals):
+        """(seed rank grid [B, H, W], None, None) from the plane-support
+        finder, or (None, indices, valid) [B, S] from the average-normal
+        finder's seed vector, in the reference's emit order."""
+        cfg = self.config
+        if cfg.seed_method == "plane_support":
+            return seeds_op.seeds_from_plane_support(
+                points, normals, cfg.plane_support_seeds).rank_grid, \
+                None, None
+        mask = seeds_op.seeds_from_average_normals(normals,
+                                                   cfg.average_normal_seeds)
+        idx, valid = seeds_op.average_normal_seed_list(
+            mask, cfg.plane_support_seeds.max_seeds)
+        return None, idx, valid
+
+    def _planar(self, points, sensor_origin, labels0=None, temporal=None):
+        """[B, H, W, 3] points -> (normals, seed count [B], planar regions).
+
+        ``temporal``: the previous regions' (centroids, normals, counts,
+        valid) tables [B, R, ...] and the geom.Pose from the previous frame
+        into this one; their seeds join the rank grid below every
+        per-frame rank, or are appended to the seed vector. The seed count
+        is JAX's: the rank grid's seeds, or with a seed vector the found
+        temporal seeds plus the valid entries of the appended vector."""
         cfg = self.config
         b, h, w = points.shape[:3]
         nrm = normals_op.compute_normals_organized(points, sensor_origin,
                                                    cfg.normals)
-        ranked = seeds_op.seeds_from_plane_support(points, nrm,
-                                                   cfg.plane_support_seeds)
+        rank_grid, idx, valid = self._rank_seeds(points, nrm)
+        num_seeds = 0
+        if temporal is not None:
+            t_idx, t_found = seeds_op.seeds_from_last_regions(
+                points, nrm, *temporal,
+                cfg.planar.max_distance_for_seed_point,
+                cfg.planar.max_normal_difference_angle_for_seed_point)
+            if rank_grid is None:
+                num_seeds = t_found.sum(dim=1, dtype=torch.int32)
+                idx = torch.cat([idx, t_idx], dim=1)
+                valid = torch.cat([valid, t_found], dim=1)
+            else:
+                rank_grid = seeds_op.append_temporal_to_rank_grid(
+                    rank_grid, t_idx, t_found)
+        if rank_grid is None:
+            num_seeds = num_seeds + valid.sum(dim=1, dtype=torch.int32)
+            rank_grid = planar_batched.rank_grid_from_seed_vector(
+                idx, valid, h, w)
+        else:
+            num_seeds = (rank_grid < seeds_op.SEED_RANK_INF).sum(
+                dim=(1, 2), dtype=torch.int32)
         if labels0 is None:
             labels0 = torch.full((b, h, w), UNLABELED, dtype=torch.int32,
                                  device=points.device)
         dev = planar_batched.grow_planar_regions_batched(
-            points, nrm, labels0, ranked.rank_grid, cfg.planar,
-            impl=self.impl)
-        return nrm, ranked, dev
+            points, nrm, labels0, rank_grid, cfg.planar, impl=self.impl)
+        return nrm, num_seeds, dev
 
     def _clusters(self, points, labels, need_sizes=True):
         return cluster.segment_clusters(points, labels, self.config.cluster,
@@ -151,24 +195,23 @@ class Segmenter:
 
     # -- full pipeline ------------------------------------------------------
 
-    def _check_full_pipeline(self, prev_regions=None):
+    def _dev_cluster(self):
+        """True when the euclidean cluster stage runs in the device program
+        (not with the mean shift, which runs in the host finalize)."""
         cfg = self.config
-        if prev_regions:
-            raise NotImplementedError("temporal seeds (prev_regions) are not "
-                                      "ported yet")
-        if cfg.run_clustering and \
-                cfg.cluster.cluster_method == ClusterMethod.MEAN_SHIFT:
-            raise NotImplementedError("mean-shift clustering is not ported "
-                                      "yet")
+        return cfg.run_clustering and \
+            cfg.cluster.cluster_method != ClusterMethod.MEAN_SHIFT
 
-    def _payload(self, points, sensor_origin, labels0, rot_robot):
+    def _payload(self, points, sensor_origin, labels0, rot_robot,
+                 temporal=None):
         """The device program of one frame ([1, H, W, 3] points): planar
-        growth, clusters on the device labels (kept when the host finalize
-        accepts every device region), the discontinuity flags. Labels stay
-        int32 (no narrowing for the host link, so cluster ids never
-        wrap)."""
+        growth (with temporal seeds if given, see :meth:`_planar`), clusters
+        on the device labels (kept when the host finalize accepts every
+        device region), the discontinuity flags. Labels stay int32 (no
+        narrowing for the host link, so cluster ids never wrap)."""
         cfg = self.config
-        nrm, ranked, dev = self._planar(points, sensor_origin, labels0)
+        nrm, num_seeds, dev = self._planar(points, sensor_origin, labels0,
+                                           temporal)
         rot = self._tensor(np.eye(3, dtype=np.float32) if rot_robot is None
                            else np.asarray(rot_robot, np.float32))
         out = dict(
@@ -176,11 +219,10 @@ class Segmenter:
             centroids=dev.centroids, curvatures=dev.curvatures,
             counts=dev.counts, seed_indices=dev.seed_indices,
             num_regions=dev.num_regions, overflow=dev.overflow,
-            num_seeds=(ranked.rank_grid < seeds_op.SEED_RANK_INF)
-            .sum(dim=(1, 2)),
+            num_seeds=num_seeds,
             disc=discontinuity.discontinuity_flags(points, nrm, dev.labels,
                                                    rot, cfg.planar))
-        if cfg.run_clustering:
+        if self._dev_cluster():
             cres = self._clusters(points, dev.labels)
             out.update(cres_labels=cres.labels, cres_num=cres.num_regions,
                        cres_sizes=cres.region_sizes)
@@ -189,25 +231,58 @@ class Segmenter:
     def segment_frame(self, points, sensor_origin,
                       rot_robot: Optional[np.ndarray] = None,
                       prev_regions: Optional[List] = None,
+                      pose_cur_prev=None,
                       input_mask: Optional[np.ndarray] = None) -> FrameResult:
         """Full pipeline on one [H, W, 3] f32 frame.
 
         ``rot_robot``: optional 3x3 robot-frame rotation for the
-        discontinuity z checks. ``input_mask``: optional [H, W] int32
-        initial label grid carrying MASKED_EGO / MASKED_OUT sentinels
+        discontinuity z checks. ``prev_regions``: optional planar records
+        of the previous frame (the first ``planar.max_regions``), whose
+        centroids and normals seed this frame
+        (FindSeedPointsFromLastPlanarRegions, planar_region.h:478-519);
+        needs ``planar.max_distance_for_seed_point`` > 0 (the angle gate is
+        in radians). ``pose_cur_prev``: the geom.Pose (or any object with
+        ``quat`` wxyz and ``trans`` arrays) from the previous frame into
+        this one; the identity if None. ``input_mask``: optional [H, W]
+        int32 initial label grid carrying MASKED_EGO / MASKED_OUT sentinels
         (segmentation.h:36-45); masked cells are never claimed and survive
-        into the output. ``prev_regions`` (temporal seeds) is not ported
-        yet."""
-        self._check_full_pipeline(prev_regions)
+        into the output."""
         points_np = np.asarray(points, np.float32)
         pts = self._tensor(points_np)[None]
         labels0 = None if input_mask is None else \
             self._tensor(input_mask, torch.int32)[None]
+        temporal = None
+        if prev_regions:
+            temporal = self._temporal_tables(prev_regions, pose_cur_prev)
         payload = self._payload(pts, self._tensor(sensor_origin,
                                                   torch.float32),
-                                labels0, rot_robot)
+                                labels0, rot_robot, temporal)
         return self._host_finalize(points_np, payload, rot_robot,
                                    lambda labels: self._clusters(pts, labels))
+
+    def _temporal_tables(self, prev_regions, pose_cur_prev):
+        """The previous records packed as JAX packs them: [1, K] tables of
+        centroids, plane normals, counts and valid (K = planar.max_regions,
+        records past K dropped), and the pose on this device."""
+        cap = self.config.planar.max_regions
+        cents = np.zeros((cap, 3), np.float32)
+        norms = np.zeros((cap, 3), np.float32)
+        counts = np.zeros((cap,), np.int32)
+        valid = np.zeros((cap,), bool)
+        for i, rec in enumerate(prev_regions[:cap]):
+            cents[i] = np.asarray(rec.centroid, np.float32)
+            norms[i] = np.asarray(rec.plane[:3], np.float32)
+            counts[i] = int(rec.count)
+            valid[i] = True
+        if pose_cur_prev is None:
+            pose = geom.Pose.identity(device=self.device)
+        elif isinstance(pose_cur_prev, geom.Pose):
+            pose = pose_cur_prev.to(self.device)
+        else:
+            pose = geom.Pose.from_arrays(pose_cur_prev.quat,
+                                         pose_cur_prev.trans, self.device)
+        return (self._tensor(cents)[None], self._tensor(norms)[None],
+                self._tensor(counts)[None], self._tensor(valid)[None], pose)
 
     def segment_frame_stream(self, depth_u16, rays, sensor_origin,
                              depth_scale: float = None,
@@ -217,8 +292,8 @@ class Segmenter:
         unprojects it against ``rays`` [H, W, 3] (kept on the device between
         calls with the same table) and the host rebuilds the identical f32
         points (``unproject_range_np``, the same IEEE multiply chain). Same
-        result contract as :meth:`segment_frame`."""
-        self._check_full_pipeline()
+        result contract as :meth:`segment_frame`; no temporal seeds and no
+        input mask, as in JAX."""
         if depth_scale is None:
             depth_scale = unproject.DEFAULT_DEPTH_SCALE
         if self._rays is None or self._rays[0] is not rays:
@@ -258,7 +333,21 @@ class Segmenter:
         num_clusters = 0
         cluster_sizes = np.zeros((0,), np.int32)
         labels_final = labels
-        if cfg.run_clustering:
+        if cfg.run_clustering and not self._dev_cluster():
+            # the mean shift (mean_shift_segmentation.h:207-330): region ids
+            # follow the planar ids; the host-ops library runs modes and
+            # growth in one call, the device growth without it
+            labels_final = labels.copy()
+            growth = "native" if native.load_hostops() is not None \
+                else "device"
+            regions = mean_shift.sliding_mean_shift(
+                points_np, labels_final, cfg.cluster,
+                cfg.mean_shift_iterations, num_planar, cfg.mean_shift,
+                growth=growth, device=self.device)
+            num_clusters = len(regions)
+            cluster_sizes = np.asarray(
+                [len(r.inlier_indices) for r in regions], np.int32)
+        elif cfg.run_clustering:
             cl, num_clusters, sizes = (host["cres_labels"],
                                        int(host["cres_num"]),
                                        host["cres_sizes"])

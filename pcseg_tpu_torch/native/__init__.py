@@ -6,7 +6,8 @@ The library is built at first use with ``g++ -O3 -shared -fPIC
 of the checkout (listed in ``.gitignore``), keyed by a hash of the source
 like the CUDA kernels (kernels/build.py). :func:`load_hostops` returns
 None when there is no host compiler or the build fails; the callers
-(models/boundary.py, utils/hostgeom.py) then take their NumPy paths.
+(models/boundary.py, utils/hostgeom.py) then take their NumPy paths, and
+the pipeline's mean shift its device growth (models/mean_shift.py).
 """
 
 from __future__ import annotations
@@ -70,5 +71,12 @@ def load_hostops() -> Optional[ctypes.CDLL]:
     lib.pcseg_convex_hull_2d.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64)]
+    lib.pcseg_mean_shift_grid.restype = ctypes.c_int32
+    lib.pcseg_mean_shift_grid.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32)]
     _LIB = lib
     return _LIB

@@ -4,15 +4,18 @@ pcseg_tpu.ops.connectivity: the scan CCL of the cluster stage).
 The reference grows euclidean clusters by BFS with a per-step distance
 gate (cluster_region.h:85-150); the accepted set is the closure of the
 gated window graph. Every component is labelled at once with its minimum
-col-major index by min-propagation (kernels/ccl_gated.py). Shapes carry a
-leading frame axis ``B``.
+col-major index by min-propagation: the scan CCL (row and column segmented
+min-scans, then the window offsets; kernels/ccl_gated.py up to 32 offsets)
+or the window CCL with pointer jumping (``ccl_mode="while"`` and the device
+mean-shift growth). Shapes carry a leading frame axis ``B``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pcseg_tpu_torch.kernels import ccl_gated
+from pcseg_tpu_torch.kernels import ccl_gated, common
+from pcseg_tpu_torch.kernels.common import shift2
 
 
 def colmajor_index_grid(h, w, device=None):
@@ -32,14 +35,13 @@ def window_offsets(half_window):
             if (dr, dc) != (0, 0)]
 
 
-def _gate_bits(points, eligible, squared_threshold, offsets):
-    """[B, H, W] int32 word: bit o set iff the edge to ``offsets[o]``
-    passes (both ends eligible, ||p - q||^2 < tau). len(offsets) <= 32.
+def window_gates(points, eligible, squared_threshold, offsets):
+    """[O, B, H, W] bool: gate o is set where the edge to ``offsets[o]``
+    passes (both ends eligible, ||p - q||^2 < tau).
 
     All offsets at once: the cloud is padded once (NaN points, ineligible
     cells) and the shifted views stacked, so a call costs a fixed number of
-    device ops; the distance keeps the per-offset f32 expression, so the
-    bits are those of one offset at a time."""
+    device ops; the distance keeps the per-offset f32 expression."""
     b, h, w = points.shape[:3]
     dev = points.device
     p = max(max(abs(dr), abs(dc)) for dr, dc in offsets)
@@ -56,10 +58,19 @@ def _gate_bits(points, eligible, squared_threshold, offsets):
     thr = torch.tensor(squared_threshold, dtype=points.dtype, device=dev)
     d = nb - points
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-    ok = (d2 < thr) & eligible & nb_elig
+    return (d2 < thr) & eligible & nb_elig
+
+
+def _gate_bits(points, eligible, squared_threshold, offsets):
+    """[B, H, W] int32 word: bit o set iff the edge to ``offsets[o]``
+    passes. At most 32 offsets (a word has 32 bits)."""
+    if len(offsets) > 32:
+        raise ValueError(f"a gate word holds at most 32 offsets, got "
+                         f"{len(offsets)}")
+    ok = window_gates(points, eligible, squared_threshold, offsets)
     # distinct bits: the int64 sum is their OR; bit 31 lands on the sign
     bits = (ok.to(torch.int64) << torch.arange(
-        len(offsets), device=dev)[:, None, None, None]).sum(dim=0)
+        len(offsets), device=points.device)[:, None, None, None]).sum(dim=0)
     return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
 
 
@@ -68,12 +79,77 @@ def connected_components_scan(points, eligible, squared_threshold,
     """Gated CCL of [B, H, W, 3] points over the eligible cells.
 
     Returns [B, H, W] int32: the min col-major index of each cell's
-    component (under the ``rounds`` cap), H*W where ineligible."""
+    component (under the ``rounds`` cap), H*W where ineligible. Up to 32
+    window offsets (half_window <= 2) the gates ride in one int32 word
+    through the CCL kernel; above that, as in JAX (which has no kernel
+    there), one bool gate per offset through the same rounds in torch ops
+    on either device."""
     b, h, w = points.shape[:3]
     big = h * w
     offsets = window_offsets(half_window)
     labels0 = torch.where(eligible, colmajor_index_grid(h, w, points.device),
                           big).to(torch.int32).contiguous()
-    gate = _gate_bits(points, eligible, squared_threshold, offsets)
-    out = ccl_gated.ccl_gated(gate, labels0, offsets, rounds, big, impl=impl)
+    if len(offsets) > 32:
+        gates = window_gates(points, eligible, squared_threshold, offsets)
+        out, _ = common.ccl_rounds(list(gates), labels0, offsets, rounds, big)
+    else:
+        gate = _gate_bits(points, eligible, squared_threshold, offsets)
+        out = ccl_gated.ccl_gated(gate, labels0, offsets, rounds, big,
+                                  impl=impl)
     return torch.where(eligible, out, big)
+
+
+def _lookup_colmajor(values, indices, fill):
+    """Gather [B, H, W] ``values`` at the col-major linear ``indices``
+    ([B, H, W] int32; H*W and up -> ``fill``), the indices clipped."""
+    b, h, w = values.shape
+    r = indices % h
+    c = torch.div(indices, h, rounding_mode="floor")
+    safe = (r * w + c).clamp(0, h * w - 1).reshape(b, -1).long()
+    out = torch.gather(values.reshape(b, -1), 1, safe).reshape(b, h, w)
+    return torch.where(indices >= h * w, fill, out)
+
+
+def connected_components_window(points, eligible, squared_threshold,
+                                half_window, max_iters=256, num_jumps=2):
+    """Component roots by min-propagation over the window with pointer
+    jumping (JAX's ``connected_components_window``, the ``ccl_mode="while"``
+    CCL): per round every offset's min-exchange against the round's start,
+    then ``num_jumps`` jumps through the labels; rounds repeat while the
+    batch changes, at most ``max_iters``. [B, H, W, 3] points and [B, H, W]
+    eligibility in; [B, H, W] int32 out, H*W where ineligible."""
+    b, h, w = points.shape[:3]
+    big = h * w
+    offsets = window_offsets(half_window)
+    gates = window_gates(points, eligible, squared_threshold, offsets)
+    init = torch.where(eligible, colmajor_index_grid(h, w, points.device),
+                       big).to(torch.int32)
+
+    def one_round(labels):
+        new = labels
+        for (dr, dc), gate in zip(offsets, gates):
+            nb = shift2(labels, dr, dc, big)
+            new = torch.minimum(new, torch.where(gate, nb, big))
+        for _ in range(num_jumps):
+            jumped = _lookup_colmajor(new, new, big)
+            new = torch.where(eligible, torch.minimum(new, jumped), big)
+        return new
+
+    prev, labels = init, one_round(init)
+    it = 1
+    while it < max_iters and bool((labels != prev).any()):
+        prev, labels = labels, one_round(labels)
+        it += 1
+    return labels
+
+
+def segment_field(values, roots, eligible):
+    """Sum [B, H, W] ``values`` over the eligible cells of each component
+    of the col-major ``roots`` (H*W = no component). Returns [B, H*W]
+    indexed by root."""
+    b, h, w = values.shape
+    out = torch.zeros((b, h * w + 1), dtype=values.dtype,
+                      device=values.device)
+    out.scatter_add_(1, roots.reshape(b, -1).long(),
+                     torch.where(eligible, values, 0).reshape(b, -1))
+    return out[:, :h * w]

@@ -1,5 +1,5 @@
-"""Closed-form symmetric 3x3 eigensolve and planes (port of
-pcseg_tpu.ops.geom, the parts the stream path uses).
+"""Closed-form symmetric 3x3 eigensolve, planes and SE(3) poses (port of
+pcseg_tpu.ops.geom, the parts the pipeline uses).
 
 ``eigh3x3_smallest_c`` follows Eigen's ``computeDirect`` (shift/scale,
 trigonometric roots, cross-product kernel extraction) with the same f32
@@ -13,6 +13,7 @@ Planes use the Eigen ``Hyperplane`` convention: ``(n, d)`` with
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # float32 smallest normalized positive value: the reference's eigenvalue
@@ -159,3 +160,134 @@ def plane_from_normal_point(normal, point):
     offset = -(normal[..., 0] * point[..., 0] + normal[..., 1] * point[..., 1]
                + normal[..., 2] * point[..., 2])
     return torch.cat([normal, offset[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# SE(3) poses as (quaternion wxyz, translation)
+# ---------------------------------------------------------------------------
+
+def cross(a, b):
+    """Cross product over the last axis, in JAX's expression order."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def quat_identity(dtype=torch.float32, device=None):
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
+def quat_normalize(q):
+    n2 = q[..., 0:1] * q[..., 0:1] + q[..., 1:2] * q[..., 1:2] \
+        + q[..., 2:3] * q[..., 2:3] + q[..., 3:4] * q[..., 3:4]
+    return q * torch.rsqrt(torch.clamp_min(n2, FLT_MIN))
+
+
+def quat_multiply(a, b):
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate vectors v [..., 3] by unit quaternions q [..., 4] (wxyz)."""
+    qv = q[..., 1:4]
+    uv = cross(qv, v)
+    uuv = cross(qv, uv)
+    return v + 2.0 * (q[..., 0:1] * uv + uuv)
+
+
+def quat_to_matrix(q):
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m):
+    """Rotation matrices [..., 3, 3] -> unit quaternions wxyz."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def mk(w, x, y, z):
+        return torch.stack([w, x, y, z], dim=-1)
+
+    q0 = mk(1.0 + tr, m21 - m12, m02 - m20, m10 - m01)
+    q1 = mk(m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20)
+    q2 = mk(m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21)
+    q3 = mk(m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11)
+    c0 = tr > 0
+    c1 = (m00 >= m11) & (m00 >= m22)
+    c2 = m11 >= m22
+    q = torch.where(c0[..., None], q0,
+                    torch.where(c1[..., None], q1,
+                                torch.where(c2[..., None], q2, q3)))
+    return quat_normalize(q)
+
+
+class Pose:
+    """SE(3) pose: rotation quaternion ``quat`` (wxyz) and translation
+    ``trans``, both tensors."""
+
+    __slots__ = ("quat", "trans")
+
+    def __init__(self, quat=None, trans=None, dtype=torch.float32,
+                 device=None):
+        self.quat = quat_identity(dtype, device) if quat is None \
+            else torch.as_tensor(quat, device=device)
+        self.trans = torch.zeros(3, dtype=dtype, device=device) \
+            if trans is None else torch.as_tensor(trans, device=device)
+
+    @staticmethod
+    def identity(dtype=torch.float32, device=None):
+        return Pose(dtype=dtype, device=device)
+
+    @staticmethod
+    def from_matrix(rot, trans):
+        return Pose(matrix_to_quat(torch.as_tensor(rot)),
+                    torch.as_tensor(trans))
+
+    @staticmethod
+    def from_arrays(quat, trans, device=None):
+        """A pose from array-likes (e.g. ``np.asarray`` of another
+        package's pose fields), as f32 tensors on ``device``."""
+        return Pose(torch.tensor(np.asarray(quat, np.float32), device=device),
+                    torch.tensor(np.asarray(trans, np.float32),
+                                 device=device))
+
+    def to(self, device):
+        return Pose(self.quat.to(device), self.trans.to(device))
+
+    def rotation_matrix(self):
+        return quat_to_matrix(self.quat)
+
+    def apply(self, points):
+        return quat_rotate(self.quat, points) + self.trans
+
+    def rotate(self, vectors):
+        return quat_rotate(self.quat, vectors)
+
+    def compose(self, other):
+        """self * other (apply other first, then self)."""
+        return Pose(quat_normalize(quat_multiply(self.quat, other.quat)),
+                    quat_rotate(self.quat, other.trans) + self.trans)
+
+    def inverse(self):
+        qinv = self.quat * torch.tensor([1.0, -1.0, -1.0, -1.0],
+                                        dtype=self.quat.dtype,
+                                        device=self.quat.device)
+        return Pose(qinv, -quat_rotate(qinv, self.trans))

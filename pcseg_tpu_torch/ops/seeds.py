@@ -1,7 +1,10 @@
-"""Plane-support seed ranking (port of pcseg_tpu.ops.seeds: the
-FindSeedPointsFromPlaneSupport finder, segmentation.h:190-230).
+"""Seed finders (port of pcseg_tpu.ops.seeds): the plane-support rank grid
+(FindSeedPointsFromPlaneSupport, segmentation.h:190-230), the average-normal
+seed list (FindSeedPointsFromAverageNormals, segmentation.h:136-184) and the
+temporal seeds of the previous frame's regions
+(FindSeedPointsFromLastPlanarRegions, planar_region.h:478-519).
 
-Every pixel with a finite point and normal counts the window points within
+Plane support: every pixel with a finite point and normal counts the window points within
 ``max_plane_distance`` of its tangent plane; qualifying pixels get a unique
 pop rank in the reference's order (count desc, col-major index desc). The
 reference indexes its grids transposed (``points.AtUnsafe(col, row)``);
@@ -12,17 +15,32 @@ axis ``B``.
 
 Only the dense rank grid is built: it is what the batched grower consumes.
 The top-``max_seeds`` seed vector of the JAX finder is not ported yet.
+
+Average normals: the weighted-average recurrence of the reference is
+sum_i n_i * S_i / sum_i n_i over the window's per-row normal sums S_i, and a
+window whose first row has no valid normal hits a 0/0 that rejects it; both
+are kept, with the transposed indexing and the ``lin - half`` re-centring of
+the emitted seed. The box sums and the squared length add in XLA:CPU's
+order (``ops/xla_order``), so the scores, and the knife edges of the score
+gate, are JAX's bit for bit.
+
+Temporal seeds: JAX takes the [R, H*W] distance and normal products as f32
+dots; the port evaluates them in XLA:CPU's fused order (``ops/xla_order``),
+so the argmin sees JAX's values.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from pcseg_tpu_torch.models.config import SeedsFromPlaneSupportParams
-from pcseg_tpu_torch.ops import nansafe
+from pcseg_tpu_torch.kernels.common import shift2
+from pcseg_tpu_torch.models.config import (SeedsFromAverageNormalsParams,
+                                           SeedsFromPlaneSupportParams)
+from pcseg_tpu_torch.ops import nansafe, xla_order
 
 # == models.planar_batched.INF_RANK
 SEED_RANK_INF = int(np.int32(2 ** 30))
@@ -118,3 +136,142 @@ def seeds_from_plane_support(
         count, qualifies, h, w, cmax=params.neighborhood_size ** 2 + 1)
     return RankedSeeds(count=count.transpose(1, 2).contiguous(),
                        rank_grid=rank_grid)
+
+
+# -- average-normal seeds -----------------------------------------------------
+
+def _box_sum_trailing(arr, n, dim):
+    """Trailing box sum of length n along ``dim``: out[k] = sum(arr[k-n+1 :
+    k+1]) (partial near the leading edge)."""
+    cs = xla_order.cumsum_last(arr.movedim(dim, -1)).movedim(-1, dim)
+    shifted = torch.roll(cs, n, dims=dim)
+    idx = torch.arange(arr.shape[dim], device=arr.device)
+    idx = idx.reshape((-1,) + (1,) * (arr.dim() - 1 - dim % arr.dim()))
+    return cs - torch.where(idx >= n, shifted, 0.0)
+
+
+def _box_sum_centered(arr, half, dim):
+    """Centered box sum of radius ``half`` along ``dim``; like JAX's, the
+    last ``half`` entries wrap around to the first ones."""
+    trailing = _box_sum_trailing(arr, 2 * half + 1, dim)
+    return torch.roll(trailing, -half, dims=dim) if half else trailing
+
+
+class SeedMask(NamedTuple):
+    mask: torch.Tensor        # [B, H, W] bool: (r, c) produces a seed
+    seed_index: torch.Tensor  # [B, H, W] int32 emitted col-major index
+    score: torch.Tensor       # [B, H, W] squared average normal length
+
+
+def seeds_from_average_normals(
+        normals: torch.Tensor,
+        params: SeedsFromAverageNormalsParams = SeedsFromAverageNormalsParams()
+) -> SeedMask:
+    """FindSeedPointsFromAverageNormals over [B, H, W, 3] normals, dense:
+    position (r, c) emits the seed index ``lin(r, c) - half``."""
+    b, h, w = normals.shape[:3]
+    dev = normals.device
+    nbh = params.neighborhood_size
+    half = nbh // 2
+    if h < nbh or w < nbh:
+        return SeedMask(torch.zeros((b, h, w), dtype=torch.bool, device=dev),
+                        torch.zeros((b, h, w), dtype=torch.int32, device=dev),
+                        torch.zeros((b, h, w), dtype=normals.dtype,
+                                    device=dev))
+    nt = normals.transpose(1, 2)  # [B, W, H, 3]: the reference's indexing
+    valid = nansafe.all_finite(nt)
+    nvals = torch.where(valid[..., None], nt, 0.0)
+    s = _box_sum_trailing(nvals, nbh, 2)
+    cnt = _box_sum_trailing(valid.to(nt.dtype), nbh, 2)
+    numer = _box_sum_centered(cnt[..., None] * s, half, 1)
+    denom = _box_sum_centered(cnt, half, 1)
+    avg = numer / torch.where(denom > 0, denom, 1.0)[..., None]
+    score = xla_order.sumsq(avg)
+    first_cnt = shift2(cnt, -half, 0, 0.0)  # cnt[r - half]
+    rows_t = torch.arange(w, device=dev)[:, None]
+    cols_t = torch.arange(h, device=dev)[None, :]
+    mask_t = ((rows_t >= half) & (rows_t < h - half)
+              & (cols_t >= nbh - 1) & (cols_t < w)
+              & (denom >= params.min_num_valid_normals)
+              & (first_cnt > 0)
+              & (score >= params.min_avg_normal_length ** 2))
+    hh, ww = min(h, w), min(w, h)
+    mask = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
+    mask[:, :hh, :ww] = mask_t[:, :hh, :ww]
+    score_rc = torch.zeros((b, h, w), dtype=score.dtype, device=dev)
+    score_rc[:, :hh, :ww] = score[:, :hh, :ww]
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    seed_index = (cols * h + rows - half).expand(b, h, w)
+    return SeedMask(mask=mask, seed_index=seed_index, score=score_rc)
+
+
+def average_normal_seed_list(seed_mask: SeedMask, max_seeds: int):
+    """Seed vectors [B, S] in the reference's emit order (row-outer, then
+    column), S = min(max_seeds, H*W): (indices int32, valid bool). The
+    grower pops back to front; over capacity the back of the vector (the
+    first-popped seeds) is kept."""
+    b, h, w = seed_mask.mask.shape
+    dev = seed_mask.mask.device
+    scan_pos = torch.arange(h * w, dtype=torch.int32, device=dev)
+    key = torch.where(seed_mask.mask.reshape(b, -1), scan_pos, -1)
+    order = torch.argsort(key, dim=1, stable=True)[:, -max_seeds:]
+    valid = torch.gather(key, 1, order) >= 0
+    indices = torch.gather(seed_mask.seed_index.reshape(b, -1), 1, order)
+    return torch.where(valid, indices, 0), valid
+
+
+# -- temporal seeds -----------------------------------------------------------
+
+def append_temporal_to_rank_grid(rank_grid, t_idx, t_found):
+    """Scatter temporal seeds [B, T] into [B, H, W] rank grids with ranks
+    -1, -2, ... (-(i + 1)), below every per-frame seed's: the reference
+    appends them to the vector (planar_region.h:516) and pops back to
+    front, so they pop first."""
+    b, h, w = rank_grid.shape
+    hw = h * w
+    t = t_idx.shape[1]
+    rank = -(torch.arange(t, dtype=torch.int32, device=rank_grid.device) + 1)
+    ok = t_found & (t_idx >= 0) & (t_idx < hw)
+    flat_cm = rank_grid.transpose(1, 2).reshape(b, hw).clone()
+    flat_cm.scatter_reduce_(1, t_idx.clamp(0, hw - 1).long(),
+                            torch.where(ok, rank, SEED_RANK_INF), "amin")
+    return flat_cm.reshape(b, w, h).transpose(1, 2).contiguous()
+
+
+def seeds_from_last_regions(points, normals, prev_centroids, prev_normals,
+                            prev_counts, prev_valid, pose_cur_prev,
+                            max_distance: float,
+                            max_normal_difference_angle: float):
+    """Temporal seed transfer over [B, H, W, 3] points/normals and [B, R]
+    previous-region tables (centroids and normals [B, R, 3], int32 counts,
+    bool valid). Each region, moved into the current frame by
+    ``pose_cur_prev`` (a geom.Pose shared by the batch), seeds at the
+    nearest current point within ``max_distance`` whose normal passes the
+    angle gate. Returns (col-major indices int32 [B, R], found [B, R]) in
+    the reference's order: ascending previous count, then region index."""
+    b, h, w = points.shape[:3]
+    c_cur = pose_cur_prev.apply(prev_centroids)
+    n_cur = pose_cur_prev.rotate(prev_normals)
+    cos_gate = math.cos(max_normal_difference_angle)
+    flat_p = points.reshape(b, -1, 3)
+    flat_n = normals.reshape(b, -1, 3)
+    cross = xla_order.dot3(c_cur, flat_p)
+    c2 = xla_order.sumsq(c_cur)[..., None]  # [B, R, 1]
+    p2 = xla_order.sumsq(flat_p)
+    d2 = c2 - 2.0 * cross + p2[:, None, :]
+    ndot = xla_order.dot3(n_cur, flat_n)
+    ok = ((ndot > cos_gate) & (d2 < max_distance * max_distance)
+          & nansafe.all_finite(flat_p)[:, None, :]
+          & nansafe.all_finite(flat_n)[:, None, :])
+    masked = torch.where(ok, d2, float("inf"))
+    best = torch.argmin(masked, dim=-1)
+    found = (torch.gather(masked, 2, best[..., None])[..., 0]
+             < float("inf")) & prev_valid
+    lin = ((best % w) * h + best // w).to(torch.int32)
+    r = prev_counts.shape[1]
+    order = torch.argsort(
+        prev_counts * r + torch.arange(r, dtype=torch.int32,
+                                       device=points.device),
+        dim=1, stable=True)
+    return torch.gather(lin, 1, order), torch.gather(found, 1, order)

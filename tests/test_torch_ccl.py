@@ -3,8 +3,12 @@ serpentine whose fixed point needs more rounds than the default cap, frames
 of one batch that stop at different rounds, and the 5x5 window, each held
 against JAX's XLA CCL and its Pallas kernel (interpret mode) on the CPU;
 the CUDA kernel against its plain version when a card is present (marker
-``cuda``), also on frames past shared memory.
+``cuda``), also on frames past shared memory. Windows of more than 32
+offsets (7x7: 48) take the bool-gate rounds on either device, as JAX's
+XLA branch does, and are held against it.
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -173,3 +177,72 @@ def test_ccl_kernel_tall_and_wide_matches_plain(cuda_device, shape):
         assert_ccl_kernel_matches_plain(
             cuda_device, pts.reshape((1,) + shape + (3,)),
             elig.reshape((1,) + shape), hw, 24)
+
+
+def island_scene():
+    """16x20 grid of points (0.001 row, 0.001 col, z): a z = 1 island at
+    rows 0-7, columns 3-8, inside a z = 5 surround."""
+    rr, cc = np.meshgrid(np.arange(16), np.arange(20), indexing="ij")
+    z = np.full((16, 20), 5.0)
+    z[0:8, 3:9] = 1.0
+    pts = np.stack([0.001 * rr, 0.001 * cc, z], -1).astype(np.float32)
+    return pts, np.ones((16, 20), bool)
+
+
+@functools.partial(jax.jit, static_argnums=(3,))
+def _jax_scan(pts, elig, thr, half_window, rounds):
+    return jconn.connected_components_scan(pts, elig, thr, half_window,
+                                           rounds=rounds)
+
+
+def jax_scan(pts, elig, thr, half_window, rounds):
+    """JAX's labels (its XLA branch above 32 offsets); the cap and the
+    threshold traced, so one compile a shape."""
+    return np.asarray(_jax_scan(pts, elig, np.float32(thr), half_window,
+                                rounds))
+
+
+def port_scan(pts, elig, thr, half_window, rounds, device="cpu"):
+    return connectivity.connected_components_scan(
+        _t(pts)[None].to(device), _t(elig)[None].to(device), thr,
+        half_window, rounds=rounds)[0].cpu().numpy()
+
+
+def test_ccl_island_at_48_offsets_matches_jax():
+    """The 7x7 window (48 offsets) used to drop gate bits 32 and up, which
+    merged the island with its surround: now 2 components, 0 cells
+    differing from JAX (threshold 0.01, cap 24)."""
+    pts, elig = island_scene()
+    want = jax_scan(pts, elig, 0.01, 3, 24)
+    got = port_scan(pts, elig, 0.01, 3, 24)
+    assert len(np.unique(want)) == 2
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("rounds", [8, 64])
+def test_ccl_serpentine_at_48_offsets_matches_jax(rounds):
+    """A 32x160 serpentine of runs 7 columns apart (the 7x7 window cannot
+    jump a gap) at half_window 3: at cap 8 the cap binds, at 64 one
+    component is left; labels equal JAX's XLA CCL."""
+    pts, elig = serpentine(32, 160, step=7)
+    want = jax_scan(pts, elig, 1.0, 3, rounds)
+    got = port_scan(pts, elig, 1.0, 3, rounds)
+    np.testing.assert_array_equal(got, want)
+    n_comp = len(np.unique(got[elig]))
+    assert n_comp > 1 if rounds == 8 else n_comp == 1
+
+
+def test_gate_word_refuses_more_than_32_offsets():
+    pts, elig = island_scene()
+    with pytest.raises(ValueError):
+        connectivity._gate_bits(_t(pts)[None], _t(elig)[None], 0.01,
+                                connectivity.window_offsets(3))
+
+
+@pytest.mark.cuda
+def test_ccl_48_offsets_card_matches_cpu(cuda_device):
+    for pts, elig, thr in (island_scene() + (0.01,),
+                           serpentine(32, 160, step=7) + (1.0,)):
+        np.testing.assert_array_equal(
+            port_scan(pts, elig, thr, 3, 24, cuda_device),
+            port_scan(pts, elig, thr, 3, 24))

@@ -220,16 +220,23 @@ def test_default_device_is_the_card():
 
 
 def test_not_ported_yet_raises():
-    pts = probe("small_plane")
-    origin = np.zeros(3, np.float32)
+    """What is not ported raises: the sequential grower (any growth_mode
+    but "batched"). Temporal seeds and the mean shift, which raised here
+    until they were ported, run (tests/test_torch_temporal.py and
+    tests/test_torch_mean_shift.py hold them to JAX)."""
+    pts, origin = fixtures.synthetic_room_cloud(24, 24, f=24.0, seed=2)
+    with pytest.raises(NotImplementedError, match="batched"):
+        pipeline.Segmenter(config.SegmenterConfig(
+            planar=config.PlanarRegionConfig(growth_mode="wavefront")),
+            device="cpu")
     seg = pipeline.Segmenter(device="cpu")
-    with pytest.raises(NotImplementedError, match="prev_regions"):
-        seg.segment_frame(pts, origin, prev_regions=[object()])
+    first = seg.segment_frame(pts, origin)
+    assert first.planar_regions
+    seg.segment_frame(pts, origin, prev_regions=first.planar_regions)
     ms = pipeline.Segmenter(config.SegmenterConfig(
         cluster=config.ClusterRegionConfig(
             cluster_method=config.ClusterMethod.MEAN_SHIFT)), device="cpu")
-    with pytest.raises(NotImplementedError, match="mean-shift"):
-        ms.segment_frame(pts, origin)
+    ms.segment_frame(pts, origin)
 
 
 def test_hostops_loads():
