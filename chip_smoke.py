@@ -92,7 +92,23 @@ final result line):
      first frame), equal to the same call on the CPU;
  18. times: ms per frame of the temporal, average-normal and mean-shift
      frames split into the device program and the host finalize, the
-     average-normal stream, the device mean shift and the 48-offset CCL.
+     average-normal stream, the device mean shift and the 48-offset CCL;
+ 19. unorganized clouds (BASELINE config 3: four Gaussian blobs of 250,000
+     points, the cloud of the committed golden ``jax_unorganized_1m.npz``):
+     the euclidean call (``cluster_unorganized``, 0.5 m cells, 256x256,
+     min 1,000 points), counted like phase 3 (one B2 launch, nothing
+     else), equal to its plain run, a rerun (bit-identical), the native
+     host path and the golden; its times (from a device tensor and from
+     NumPy, plain, native host) and synced stages;
+ 20. B2 on the voxel grids (that call's 256x256 and the 512x512 grid of
+     0.25 m cells) against its plain version, with rounds run, ms and
+     bound;
+ 21. the mean-shift call (0.125 m cells, 512x512, 5 iterations): the host
+     backend equal to the golden, the device backend on the card agreeing
+     with it on >= 99% of the points; both timed;
+ 22. ``Segmenter`` with the sequential grower (hybrid, wavefront) on a
+     120x160 room frame on the card, equal to the same frame on the CPU,
+     counted (B2 in the cluster stage; B1 and B3 not).
 
 The line before the last lists the kernels with their bounds; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card, the CUDA
@@ -175,6 +191,16 @@ YAW_DEG = 3.0
 TRANS = (0.05, 0.02, 0.0)
 # the device mean shift's frame (phase 16)
 MS_DEVICE_SHAPE = (120, 160)
+# BASELINE config 3 (benchmarks/measure_tpu.py:269-312): four Gaussian
+# blobs of 250,000 points (utils/synthetic.gaussian_blobs, seed 0), the
+# euclidean call and the mean-shift call
+UNORG_POINTS_PER_BLOB = 250_000
+UNORG_CASES = {
+    "euclid": dict(min_region_inliers=1000, cell_size=0.5,
+                   grid_shape=(256, 256)),
+    "mean_shift": dict(cell_size=0.125, grid_shape=(512, 512),
+                       iterations=5),
+}
 
 
 def plane_tolerance(points):
@@ -912,6 +938,10 @@ def main():
         torch, card, dev, scenes, rays, origin, origin_d, rays_d, batches,
         reset_counts, read_counts, kernels_mod, cpts)
 
+    unorg_times, voxel_b2, unorg_b2 = unorganized_phases(
+        torch, card, dev, reset_counts, read_counts, kernels_mod)
+    seq_times = sequential_phase(torch, card, dev, reset_counts, read_counts)
+
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
     e_bound = bound(nbytes(*[a for a in eargs if torch.is_tensor(a)])
@@ -935,7 +965,8 @@ def main():
              launches=counts32["ccl_gated"], max_abs_err=c_err,
              ms=c_ms, ms_per_call_of_10=c_10, plain_ms=c_plain,
              bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
-             rounds_run=c_rounds),
+             rounds_run=c_rounds, launches_unorganized_euclid=unorg_b2,
+             voxel_grid=voxel_b2),
         dict(name="flood_packed", route="cuda",
              source="pcseg_tpu_torch/csrc/flood_packed.cu",
              replaces="pcseg_tpu/models/planar_batched.py:133",
@@ -944,6 +975,7 @@ def main():
              bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
     ]
     emit("times_options", card=card, **opt_times)
+    emit("times_unorganized", card=card, **unorg_times, **seq_times)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -974,6 +1006,15 @@ def moved_frame(points):
                    axis=-1).astype(np.float32)
     quat = np.float32([math.cos(rad / 2), 0, 0, math.sin(rad / 2)])
     return out, t.copy(), quat, t
+
+
+def unorganized_case(config, name):
+    """(ClusterRegionConfig from the ``config`` module given, keyword
+    arguments) of a config-3 call; the goldens' generator
+    (tests/test_torch_golden_unorganized.py) calls this too."""
+    kw = dict(UNORG_CASES[name])
+    fields = {k: kw.pop(k) for k in ("min_region_inliers",) if k in kw}
+    return config.ClusterRegionConfig(**fields), kw
 
 
 def golden_arrays(gold, prefix):
@@ -1296,12 +1337,272 @@ def option_phases(torch, card, dev, scenes, rays, origin, origin_d, rays_d,
     return times
 
 
+def unorganized_phases(torch, card, dev, reset_counts, read_counts,
+                       kernels_mod):
+    """Phases 19-21: the unorganized clouds of BASELINE config 3 (1M points)
+    and B2 on their voxel grids. Returns (times, B2's voxel-grid entries,
+    B2's launches in the euclidean call)."""
+    from pcseg_tpu_torch.kernels import ccl_gated
+    from pcseg_tpu_torch.models import cluster, config, unorganized
+    from pcseg_tpu_torch.ops import voxelize
+    from pcseg_tpu_torch.utils.synthetic import gaussian_blobs
+
+    t_start = time.perf_counter()
+    pts = gaussian_blobs(n_per=UNORG_POINTS_PER_BLOB, seed=0)
+    gold = np.load(os.path.join(ROOT, "pcseg_tpu_torch", "testdata",
+                                "jax_unorganized_1m.npz"))
+    if hashlib.sha256(pts.tobytes()).digest() != \
+            gold["cloud_sha256"].tobytes():
+        fail("the config-3 cloud differs from the golden's")
+    pts_d = torch.from_numpy(pts).to(dev)
+    ecfg, ekw = unorganized_case(config, "euclid")
+
+    def euclid(impl=None, points=pts_d, **kw):
+        out = unorganized.cluster_unorganized(points, ecfg, device=dev,
+                                              impl=impl, **{**ekw, **kw})
+        torch.cuda.synchronize()
+        return out
+
+    # 19. the euclidean call: one B2 launch, equal to its plain run, a
+    # rerun, the native host path and the JAX golden
+    euclid()  # warm-up
+    reset_counts()
+    res = euclid()
+    counts = read_counts()
+    again, plain = euclid(), euclid(impl="plain")
+    host = unorganized.cluster_unorganized_host(pts, ecfg, **ekw)
+    fields = ("grid_labels", "num_regions", "region_sizes")
+    checks = dict(
+        launches_ok=counts["ccl_gated"] == 1 and sum(counts.values()) == 1,
+        well_formed=(res.point_labels.shape == (len(pts),)
+                     and res.point_labels.dtype == torch.int32
+                     and int(res.num_regions) == 4),
+        bit_identical_rerun=all(torch.equal(a, b)
+                                for a, b in zip(res, again)),
+        equal_plain=all(torch.equal(a, b) for a, b in zip(res, plain)),
+        equal_native_host=all(
+            np.array_equal(np.asarray(getattr(res, f).cpu()),
+                           np.asarray(getattr(host, f)))
+            for f in ("point_labels",) + fields),
+        equal_jax_golden=all(
+            np.array_equal(getattr(res, f).cpu().numpy(),
+                           gold["euclid__" + f]) for f in fields))
+    emit("unorganized_euclid_1m", points=len(pts), card=card,
+         num_regions=int(res.num_regions),
+         region_sizes=res.region_sizes[:4].tolist(), launches=counts,
+         **checks)
+    if not all(checks.values()):
+        fail(f"the 1M-point euclidean call failed a check: {checks}")
+
+    def host_ms(fn, reps=OPTION_REPS):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    times = dict(
+        euclid_1m_device_ms=cuda_ms(torch, euclid, reps=OPTION_REPS),
+        euclid_1m_plain_ms=cuda_ms(torch, lambda: euclid("plain"),
+                                   reps=OPTION_REPS),
+        euclid_1m_from_host_ms=host_ms(lambda: euclid(points=pts)),
+        euclid_1m_native_host_ms=host_ms(
+            lambda: unorganized.cluster_unorganized_host(pts, ecfg, **ekw)))
+    times["euclid_1m_points_per_s"] = len(pts) / (
+        times["euclid_1m_device_ms"] / 1e3)
+    stages = [(voxelize, "voxelize_xy"), (cluster, "segment_clusters"),
+              (ccl_gated, "ccl_gated"),
+              (voxelize, "scatter_labels_to_points")]
+    emit("stages", path="unorganized_euclid_1m", card=card,
+         synced_ms=synced_stages(torch, stages, euclid),
+         profile=profile_window(torch, euclid))
+
+    # 20. B2 on the voxel grids: the euclidean call's 256x256 grid and the
+    # default 512x512 grid (0.25 m cells)
+    voxel = []
+    for label, kw in (("256x256", {}),
+                      ("512x512", dict(cell_size=0.25,
+                                       grid_shape=(512, 512)))):
+        args = capture(ccl_gated, "ccl_gated",
+                       lambda kw=kw: euclid("plain", **kw))
+        gate, lab0, offs, cap, big = args
+        ran = [torch.zeros(1, dtype=torch.int32, device=dev)
+               for _ in range(2)]
+        got = ccl_gated.ccl_gated(*args, rounds_out=ran[0])
+        want = ccl_gated.ccl_gated(*args, impl="plain", rounds_out=ran[1])
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, want)) and torch.equal(*ran)
+        per_call, launched, _ = kernels_per_call(
+            torch, lambda: ccl_gated.ccl_gated(*args))
+        b_ms, b_by = bound(nbytes(gate, lab0, got))
+        entry = dict(shape=list(gate.shape), cap=cap,
+                     rounds_run=ran[0].tolist(),
+                     eligible=int((got < big).sum()),
+                     max_abs_err=int((got.to(torch.int64) - want).abs().max()),
+                     ms=cuda_ms(torch, lambda: ccl_gated.ccl_gated(*args)),
+                     ms_per_call_of_10=cuda_ms(
+                         torch, lambda: ccl_gated.ccl_gated(*args),
+                         calls=10),
+                     plain_ms=cuda_ms(torch, lambda: ccl_gated.ccl_gated(
+                         *args, impl="plain")),
+                     bound_ms=b_ms, bound_by=b_by,
+                     launch_calls_per_call=launched)
+        emit("ccl_gated_voxel_grid", grid=label, card=card, exact=exact,
+             device_events_per_call=per_call, **entry)
+        if not exact or launched != 1:
+            fail(f"ccl_gated on the {label} voxel grid disagrees with its "
+                 "plain version or is not one launch")
+        voxel.append(entry)
+
+    # 21. the mean-shift call at 512x512 (0.125 m cells): the host backend
+    # equal to the JAX golden, the device backend on the card agreeing
+    # with it on >= 99% of the points (tests/test_unorganized.py's bound)
+    mcfg, mkw = unorganized_case(config, "mean_shift")
+    t0 = time.perf_counter()
+    mhost = unorganized.cluster_unorganized_mean_shift(pts, mcfg,
+                                                       backend="host", **mkw)
+    mhost_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mdev = unorganized.cluster_unorganized_mean_shift(
+        pts_d, mcfg, backend="device", device=dev, **mkw)
+    torch.cuda.synchronize()
+    mdev_ms = (time.perf_counter() - t0) * 1e3
+    mcounts = read_counts()
+    agree = float((mdev.point_labels.cpu().numpy()
+                   == mhost.point_labels).mean())
+    checks = dict(
+        host_equal_jax_golden=bool(
+            np.array_equal(mhost.grid_labels, gold["ms__grid_labels"])
+            and int(mhost.num_regions) == int(gold["ms__num_regions"])),
+        device_on_card=mdev.point_labels.device.type == "cuda",
+        device_agreement_ok=agree >= 0.99)
+    emit("unorganized_mean_shift_1m", points=len(pts), card=card,
+         host_regions=int(mhost.num_regions),
+         device_regions=int(mdev.num_regions), point_agreement=agree,
+         host_ms=mhost_ms, device_ms=mdev_ms, launches=mcounts, **checks)
+    if not all(checks.values()):
+        fail(f"the 1M-point mean-shift call failed a check: {checks}")
+    times.update(mean_shift_1m_host_ms=host_ms(
+        lambda: unorganized.cluster_unorganized_mean_shift(
+            pts, mcfg, backend="host", **mkw)),
+        mean_shift_1m_device_ms=mdev_ms)
+    times["phases_19_to_21_seconds"] = time.perf_counter() - t_start
+    return times, voxel, counts["ccl_gated"]
+
+
+def sequential_phase(torch, card, dev, reset_counts, read_counts):
+    """Phase 22: ``Segmenter`` with the sequential grower (hybrid and
+    wavefront) on a 120x160 room frame on the card against the same frame
+    on the CPU, counted like phase 3 (the cluster stage's B2 launches, B1
+    and B3 do not). Returns the frames' ms."""
+    import dataclasses
+    from pcseg_tpu_torch.models import config, pipeline
+    from pcseg_tpu_torch.ops import unproject
+    from pcseg_tpu_torch.utils.synthetic import synthetic_room_cloud
+
+    h, w = MS_DEVICE_SHAPE
+    d16 = unproject.encode_range(synthetic_room_cloud(
+        h, w, f=float(h), seed=1)[0])
+    pts = unproject.unproject_range_np(
+        d16, unproject.camera_ray_table(h, w, f=float(h)))
+    origin = np.zeros(3, np.float32)
+    out = {}
+    for mode in ("hybrid", "wavefront"):
+        cfg = config.SegmenterConfig(planar=dataclasses.replace(
+            config.PlanarRegionConfig(), growth_mode=mode))
+        seg = pipeline.Segmenter(cfg, device=dev)
+        seg.segment_frame(pts, origin)  # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline.frame_arrays(seg.segment_frame(pts, origin))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        cpu = pipeline.Segmenter(cfg, device="cpu")
+        t0 = time.perf_counter()
+        want = pipeline.frame_arrays(cpu.segment_frame(pts, origin))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        same = all(np.array_equal(got[k], want[k]) for k in EXACT)
+        plane_err = float(np.abs(got["planes"] - want["planes"]).max()) \
+            if len(want["planes"]) else 0.0
+        emit("sequential_grower_frame", mode=mode, shape=[h, w], card=card,
+             metrics=got["metrics"].tolist(), exact_vs_cpu=same,
+             planes_max_abs_err=plane_err, atol=PLANE_ATOL, launches=counts,
+             ms=ms, cpu_ms=cpu_ms)
+        if not (same and plane_err <= PLANE_ATOL):
+            fail(f"the {mode} frame on the card differs from the CPU's")
+        if counts["ccl_gated"] <= 0 or counts["epoch_word"] \
+                or counts["flood_packed"] or got["metrics"][2] < 1:
+            fail(f"the {mode} frame must find planes and launch only "
+                 f"ccl_gated: {counts}")
+        out[f"{mode}_frame_ms"] = ms
+    return out
+
+
+def synced_stages(torch, stages, run):
+    """Synced wall ms of each (module, function name) in ``stages`` during
+    ``run()`` (a sync before and after each wrapped call) and of the whole
+    call."""
+    acc = {name: 0.0 for _, name in stages}
+    real = {}
+    for mod, name in stages:
+        real[name] = getattr(mod, name)
+
+        def wrap(*a, _f=real[name], _n=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _f(*a, **kw)
+            torch.cuda.synchronize()
+            acc[_n] += (time.perf_counter() - t0) * 1e3
+            return out
+        setattr(mod, name, wrap)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        acc["whole call"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name in stages:
+            setattr(mod, name, real[name])
+    return acc
+
+
+def profile_window(torch, run):
+    """A torch.profiler window of one unsynced ``run()``: wall ms, device
+    busy ms, idle share, device events and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=1 - busy / wall if wall else None,
+                device_events=sum(e.count for e in kernels),
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+
+
 def stage_profile(torch, card, segs, stream, scenes, rays, origin,
                   pipeline):
     """Where the time goes on the cluttered scene, for the stream batch and
-    the full-pipeline frame at 32 and 64 slots: synced wall ms per stage (a
-    sync before and after each wrapped call), then a torch.profiler window
-    (device busy vs wall) of one unsynced call of each."""
+    the full-pipeline frame at 32 and 64 slots: synced wall ms per stage,
+    then a torch.profiler window (device busy vs wall) of one unsynced call
+    of each."""
     from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
     from pcseg_tpu_torch.models import cluster, planar_batched
     from pcseg_tpu_torch.ops import discontinuity, normals, seeds
@@ -1313,51 +1614,6 @@ def stage_profile(torch, card, segs, stream, scenes, rays, origin,
               (cluster, "segment_clusters"), (ccl_gated, "ccl_gated"),
               (discontinuity, "discontinuity_flags"),
               (pipeline.Segmenter, "_host_finalize")]
-
-    def synced(run):
-        acc = {name: 0.0 for _, name in stages}
-        real = {}
-        for mod, name in stages:
-            real[name] = getattr(mod, name)
-
-            def wrap(*a, _f=real[name], _n=name, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = _f(*a, **kw)
-                torch.cuda.synchronize()
-                acc[_n] += (time.perf_counter() - t0) * 1e3
-                return out
-            setattr(mod, name, wrap)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            acc["whole call"] = (time.perf_counter() - t0) * 1e3
-        finally:
-            for mod, name in stages:
-                setattr(mod, name, real[name])
-        return acc
-
-    def profiled(run):
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type.name == "CUDA"]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        return dict(wall_ms=wall, device_busy_ms=busy,
-                    idle_share=1 - busy / wall if wall else None,
-                    device_events=sum(e.count for e in kernels),
-                    top=[(e.key[:60], e.self_device_time_total / 1e3,
-                          e.count) for e in top])
-
     d16 = scenes["cluttered"]
     runs = {}
     for k, (s, _) in segs.items():
@@ -1366,8 +1622,9 @@ def stage_profile(torch, card, segs, stream, scenes, rays, origin,
             d16, rays, origin)
     for name, run in runs.items():
         run()
-        emit("stages", path=name, card=card, synced_ms=synced(run),
-             profile=profiled(run))
+        emit("stages", path=name, card=card,
+             synced_ms=synced_stages(torch, stages, run),
+             profile=profile_window(torch, run))
 
 
 if __name__ == "__main__":

@@ -11,10 +11,19 @@ hand-written CUDA for sm_90a (``csrc/``), each with a plain PyTorch version
 in its ``kernels/`` module; CPU tensors take the plain versions. The
 ``Segmenter`` runs on the card unless given ``device="cpu"``. The package
 never imports JAX.
+
+Beside the pipeline: clustering of unorganized clouds through voxel grids
+(``models.unorganized``), the sequential planar grower
+(``growth_mode="wavefront"``/``"hybrid"``, ``models.planar``), the plane
+estimator's state (``ops.plane_fit``), registration, polygons and the
+tensor ``PointCloud`` (``utils.cloud``).
 """
 
 from pcseg_tpu_torch.models.config import (  # noqa: F401
-    UNLABELED, SegmenterConfig, config_from_dict)
+    MASKED_EGO, MASKED_OUT, UNLABELED, ClusterRegionConfig,
+    ComputeNormalsParams, MeanShiftParams, PlanarRegionConfig, PlaneClass,
+    PlaneClassificationConfig, SegmenterConfig, config_from_dict)
 from pcseg_tpu_torch.models.pipeline import Segmenter  # noqa: F401
+from pcseg_tpu_torch.utils.cloud import PointCloud  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

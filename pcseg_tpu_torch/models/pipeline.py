@@ -13,8 +13,10 @@
 
 Seeds come from the plane-support rank grid or, with
 ``seed_method="average_normals"``, from the average-normal seed vector,
-grown through the same rank grid. ``segment_frame(prev_regions=...)`` adds
-the previous frame's regions as temporal seeds, which pop first.
+grown through the same rank grid; ``growth_mode="wavefront"`` and
+``"hybrid"`` grow the seed vector one region at a time (models/planar.py).
+``segment_frame(prev_regions=...)`` adds the previous frame's regions as
+temporal seeds, which pop first.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from pcseg_tpu_torch import native
 from pcseg_tpu_torch.models import (boundary, classify, cluster, extract,
-                                    mean_shift, planar_batched)
+                                    mean_shift, planar, planar_batched)
 from pcseg_tpu_torch.models.config import (
     SEMANTIC_UNKNOWN, UNLABELED, ClusterMethod, SegmenterConfig)
 from pcseg_tpu_torch.ops import discontinuity, geom
@@ -71,8 +73,10 @@ class Segmenter:
                  device=None, impl=None):
         if config.seed_method not in ("plane_support", "average_normals"):
             raise ValueError(f"unknown seed_method {config.seed_method!r}")
-        if config.planar.growth_mode != "batched":
-            raise NotImplementedError("only the batched grower is ported")
+        if config.planar.growth_mode not in ("batched", "wavefront",
+                                             "hybrid"):
+            raise ValueError(
+                f"unknown growth_mode {config.planar.growth_mode!r}")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device: the pipeline runs on the "
@@ -87,15 +91,20 @@ class Segmenter:
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _sequential(self):
+        return self.config.planar.growth_mode != "batched"
+
     def _rank_seeds(self, points, normals):
-        """(seed rank grid [B, H, W], None, None) from the plane-support
-        finder, or (None, indices, valid) [B, S] from the average-normal
-        finder's seed vector, in the reference's emit order."""
+        """(seed rank grid [B, H, W], indices, valid) from the plane-support
+        finder (the [B, S] seed vector only for the sequential grower, else
+        None), or (None, indices, valid) from the average-normal finder's
+        seed vector, in the reference's emit order."""
         cfg = self.config
         if cfg.seed_method == "plane_support":
-            return seeds_op.seeds_from_plane_support(
-                points, normals, cfg.plane_support_seeds).rank_grid, \
-                None, None
+            ranked = seeds_op.seeds_from_plane_support(
+                points, normals, cfg.plane_support_seeds,
+                seed_vector=self._sequential())
+            return ranked.rank_grid, ranked.indices, ranked.valid
         mask = seeds_op.seeds_from_average_normals(normals,
                                                    cfg.average_normal_seeds)
         idx, valid = seeds_op.average_normal_seed_list(
@@ -110,7 +119,13 @@ class Segmenter:
         into this one; their seeds join the rank grid below every
         per-frame rank, or are appended to the seed vector. The seed count
         is JAX's: the rank grid's seeds, or with a seed vector the found
-        temporal seeds plus the valid entries of the appended vector."""
+        temporal seeds plus the valid entries of the appended vector.
+
+        The batched grower takes the rank grid (built from the seed vector
+        for average-normal seeds); the sequential grower (``growth_mode``
+        "wavefront" or "hybrid") takes the seed vector, as in JAX, where
+        plane-support temporal seeds join only the rank grid, which the
+        sequential grower does not read (ROADMAP Queue 3)."""
         cfg = self.config
         b, h, w = points.shape[:3]
         nrm = normals_op.compute_normals_organized(points, sensor_origin,
@@ -131,21 +146,31 @@ class Segmenter:
                     rank_grid, t_idx, t_found)
         if rank_grid is None:
             num_seeds = num_seeds + valid.sum(dim=1, dtype=torch.int32)
-            rank_grid = planar_batched.rank_grid_from_seed_vector(
-                idx, valid, h, w)
         else:
             num_seeds = (rank_grid < seeds_op.SEED_RANK_INF).sum(
                 dim=(1, 2), dtype=torch.int32)
         if labels0 is None:
             labels0 = torch.full((b, h, w), UNLABELED, dtype=torch.int32,
                                  device=points.device)
+        if self._sequential():
+            dev = planar.grow_planar_regions(
+                points, nrm, labels0, idx, valid, cfg.planar,
+                initial_id_offset=0, max_attempts=cfg.max_region_attempts)
+            return nrm, num_seeds, dev
+        if rank_grid is None:
+            rank_grid = planar_batched.rank_grid_from_seed_vector(
+                idx, valid, h, w)
         dev = planar_batched.grow_planar_regions_batched(
             points, nrm, labels0, rank_grid, cfg.planar, impl=self.impl)
         return nrm, num_seeds, dev
 
     def _clusters(self, points, labels, need_sizes=True):
-        return cluster.segment_clusters(points, labels, self.config.cluster,
-                                        need_sizes=need_sizes, impl=self.impl)
+        # every point seeds, popped in ascending col-major order (the
+        # canonical sweep, which that path never reads)
+        return cluster.segment_clusters(
+            points, labels, None,
+            self.config.cluster, initial_id_offset=0, canonical_seeds=True,
+            need_sizes=need_sizes, impl=self.impl)
 
     def _forward(self, points, sensor_origin, labels0=None, need_sizes=True):
         """[B, H, W, 3] points -> (final labels, normals, planar regions,

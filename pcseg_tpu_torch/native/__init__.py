@@ -78,5 +78,20 @@ def load_hostops() -> Optional[ctypes.CDLL]:
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32)]
+    lib.pcseg_cluster_unorganized.restype = ctypes.c_int32
+    lib.pcseg_cluster_unorganized.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int32, ctypes.c_float,
+        ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+    lib.pcseg_mean_shift_points.restype = ctypes.c_int32
+    lib.pcseg_mean_shift_points.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
     _LIB = lib
     return _LIB

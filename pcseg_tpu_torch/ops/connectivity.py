@@ -7,7 +7,8 @@ gated window graph. Every component is labelled at once with its minimum
 col-major index by min-propagation: the scan CCL (row and column segmented
 min-scans, then the window offsets; kernels/ccl_gated.py up to 32 offsets)
 or the window CCL with pointer jumping (``ccl_mode="while"`` and the device
-mean-shift growth). Shapes carry a leading frame axis ``B``.
+mean-shift growth). ``reachable_from`` is the 4-connected flood of the
+sequential grower. Shapes carry a leading frame axis ``B``.
 """
 
 from __future__ import annotations
@@ -143,13 +144,37 @@ def connected_components_window(points, eligible, squared_threshold,
     return labels
 
 
-def segment_field(values, roots, eligible):
-    """Sum [B, H, W] ``values`` over the eligible cells of each component
-    of the col-major ``roots`` (H*W = no component). Returns [B, H*W]
-    indexed by root."""
+def reachable_from(mask, sources, max_rounds=64):
+    """Cells of the bool ``mask`` [..., H, W] 4-connected to a cell of
+    ``sources`` (JAX's ``reachable_from``, the sequential grower's epoch
+    flood). A round OR-spreads reachability through whole runs of the mask
+    along the rows, then along the columns (segmented scans forward and
+    backward); the first round always runs and rounds repeat while a grid
+    changed, at most ``max_rounds``: JAX's rounds, run by the plain flood of
+    one bit per word in torch ops."""
+    shape = mask.shape
+    gate = mask.reshape((-1,) + shape[-2:]).to(torch.int32)
+    reach0 = (sources & mask).reshape(gate.shape).to(torch.int32)
+    reach, _ = common.or_flood(gate, reach0, max_rounds)
+    return (reach != 0).reshape(shape)
+
+
+def segment_field(values, roots, eligible, reduce="sum"):
+    """Reduce [B, H, W] ``values`` over the cells of each component of the
+    col-major ``roots`` (H*W = no component): ``"sum"`` over the eligible
+    cells (0 elsewhere), ``"min"`` over the values as given (the integer
+    maximum where a root has no cell). Returns [B, H*W] indexed by root."""
     b, h, w = values.shape
-    out = torch.zeros((b, h * w + 1), dtype=values.dtype,
-                      device=values.device)
-    out.scatter_add_(1, roots.reshape(b, -1).long(),
-                     torch.where(eligible, values, 0).reshape(b, -1))
+    seg = roots.reshape(b, -1).long()
+    if reduce == "sum":
+        out = torch.zeros((b, h * w + 1), dtype=values.dtype,
+                          device=values.device)
+        out.scatter_add_(1, seg, torch.where(eligible, values, 0)
+                         .reshape(b, -1))
+    elif reduce == "min":
+        out = torch.full((b, h * w + 1), torch.iinfo(values.dtype).max,
+                         dtype=values.dtype, device=values.device)
+        out.scatter_reduce_(1, seg, values.reshape(b, -1), "amin")
+    else:
+        raise ValueError(f"unknown reduce {reduce!r}")
     return out[:, :h * w]

@@ -162,9 +162,52 @@ def plane_from_normal_point(normal, point):
     return torch.cat([normal, offset[..., None]], dim=-1)
 
 
+def plane_signed_distance(plane, x):
+    """Signed distance n.x + d. plane: [..., 4], x: [..., 3] -> [...]."""
+    return (plane[..., 0] * x[..., 0] + plane[..., 1] * x[..., 1]
+            + plane[..., 2] * x[..., 2]) + plane[..., 3]
+
+
+def plane_abs_distance(plane, x):
+    return plane_signed_distance(plane, x).abs()
+
+
+def plane_project(plane, x):
+    """Orthogonal projection of x onto the plane."""
+    return x - plane_signed_distance(plane, x)[..., None] * plane[..., :3]
+
+
+def pose_from_plane(plane):
+    """(R [..., 3, 3], t [..., 3]) of a frame whose +z is the plane normal
+    and whose origin is the plane's point closest to the world origin
+    (eigenmath::PoseFromPlane, algorithms.h:530): R's columns are the plane
+    frame's axes in the world. x is the helper axis least aligned with the
+    normal crossed with it, y = z x x."""
+    n = plane[..., :3]
+    t = -plane[..., 3:4] * n
+    ax = n.abs()
+    use_x = (ax[..., 0] <= ax[..., 1]) & (ax[..., 0] <= ax[..., 2])
+    use_y = ~use_x & (ax[..., 1] <= ax[..., 2])
+    eye = torch.eye(3, dtype=plane.dtype, device=plane.device)
+    helper = torch.where(use_x[..., None], eye[0],
+                         torch.where(use_y[..., None], eye[1], eye[2]))
+    x = cross(helper, n)
+    x = x * torch.rsqrt(torch.clamp_min(
+        x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2],
+        FLT_MIN))[..., None]
+    y = cross(n, x)
+    return torch.stack([x, y, n], dim=-1), t
+
+
 # ---------------------------------------------------------------------------
 # SE(3) poses as (quaternion wxyz, translation)
 # ---------------------------------------------------------------------------
+
+def matmul_sums(a, b):
+    """[..., I, K] @ [..., K, J] as f32 elementwise sums (no library
+    matmul, so no TF32 on the card)."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
+
 
 def cross(a, b):
     """Cross product over the last axis, in JAX's expression order."""

@@ -13,8 +13,8 @@ the min-fold over shifted planes that non-square grids produce (see
 pcseg_tpu.ops.seeds.plane_support_rank_grid). Shapes carry a leading frame
 axis ``B``.
 
-Only the dense rank grid is built: it is what the batched grower consumes.
-The top-``max_seeds`` seed vector of the JAX finder is not ported yet.
+The dense rank grid is what the batched grower consumes; the sequential
+grower takes the top-``max_seeds`` seed vector (``seed_vector=True``).
 
 Average normals: the weighted-average recurrence of the reference is
 sum_i n_i * S_i / sum_i n_i over the window's per-row normal sums S_i, and a
@@ -32,7 +32,7 @@ so the argmin sees JAX's values.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,6 +51,10 @@ class RankedSeeds(NamedTuple):
     # [B, H, W] int32 pop-priority grid over EVERY qualifying seed (smaller
     # = popped earlier); SEED_RANK_INF where not a seed
     rank_grid: torch.Tensor
+    # [B, S] int32 col-major seed vector in the reference's order (the
+    # last pops first) and its valid mask; only with ``seed_vector=True``
+    indices: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
 
 
 def plane_support_counts(points, normals, params):
@@ -116,26 +120,54 @@ def plane_support_rank_grid(count, qualifies, h, w, cmax):
     return out
 
 
+def rank_plane_support_seeds(count, qualifies, h, w, max_seeds):
+    """The reference's multimap order as a seed vector ([B, S] int32
+    col-major indices, [B, S] valid; S = min(max_seeds, H*W)): ascending
+    (count, col-major index), of which the TOP ``max_seeds`` (the back of
+    the vector, which the driver pops first) are kept; invalid entries key
+    below every valid one and read 0. Layouts as in
+    :func:`plane_support_rank_grid`."""
+    b, ha, wa = count.shape
+    dev = count.device
+    rows = torch.arange(ha, dtype=torch.int64, device=dev)[:, None]
+    cols = torch.arange(wa, dtype=torch.int64, device=dev)[None, :]
+    lin_idx = cols * h + rows
+    key = torch.where(qualifies, count.to(torch.int64) * (h * w) + lin_idx,
+                      -1).reshape(b, -1)
+    order = torch.argsort(key, dim=1, stable=True)[:, -max_seeds:]
+    valid = torch.gather(key, 1, order) >= 0
+    return torch.where(valid, lin_idx.reshape(-1)[order], 0) \
+        .to(torch.int32), valid
+
+
 def seeds_from_plane_support(
         points: torch.Tensor, normals: torch.Tensor,
-        params: SeedsFromPlaneSupportParams = SeedsFromPlaneSupportParams()
-) -> RankedSeeds:
+        params: SeedsFromPlaneSupportParams = SeedsFromPlaneSupportParams(),
+        seed_vector: bool = False) -> RankedSeeds:
     """FindSeedPointsFromPlaneSupport over [B, H, W, 3] points/normals, in
-    the reference's transposed grid orientation."""
+    the reference's transposed grid orientation. ``seed_vector=True`` also
+    ranks the top-``max_seeds`` seed vector (the sequential grower's
+    input)."""
     b, h, w = points.shape[:3]
     dev = points.device
     if h < params.neighborhood_size or w < params.neighborhood_size:
+        none = torch.zeros((b, params.max_seeds), dtype=torch.int32,
+                           device=dev)
         return RankedSeeds(
             torch.zeros((b, h, w), dtype=torch.int32, device=dev),
             torch.full((b, h, w), SEED_RANK_INF, dtype=torch.int32,
-                       device=dev))
+                       device=dev),
+            *((none, none.bool()) if seed_vector else ()))
     count, center_ok = plane_support_counts(points.transpose(1, 2),
                                             normals.transpose(1, 2), params)
     qualifies = center_ok & (count >= params.min_num_support_points)
     rank_grid = plane_support_rank_grid(
         count, qualifies, h, w, cmax=params.neighborhood_size ** 2 + 1)
-    return RankedSeeds(count=count.transpose(1, 2).contiguous(),
-                       rank_grid=rank_grid)
+    vector = rank_plane_support_seeds(count, qualifies, h, w,
+                                      params.max_seeds) \
+        if seed_vector else ()
+    return RankedSeeds(count.transpose(1, 2).contiguous(), rank_grid,
+                       *vector)
 
 
 # -- average-normal seeds -----------------------------------------------------

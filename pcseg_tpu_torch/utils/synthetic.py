@@ -1,4 +1,4 @@
-"""Synthetic organized-cloud generators (fixtures, benchmarks, demos)."""
+"""Synthetic cloud generators (fixtures, benchmarks, demos)."""
 
 from __future__ import annotations
 
@@ -123,3 +123,18 @@ def synthetic_cluttered_room_cloud(rows=120, cols=160, f=120.0, seed=0,
         holes = rng.random((rows, cols)) < 0.02
         pts[holes] = np.nan
     return pts, np.zeros(3, np.float32)
+
+
+BLOB_CENTERS = ((0.0, 0.0, 0.0), (30.0, 0.0, 0.0), (0.0, 35.0, 0.0),
+                (40.0, 40.0, 0.0))
+
+
+def gaussian_blobs(n_per=250_000, sigma=0.4, seed=0):
+    """The unorganized cloud of BASELINE config 3: four Gaussian blobs
+    (sigma 0.4 m) of ``n_per`` points each, [4 * n_per, 3] f32, drawn in
+    the order of ``benchmarks/measure_tpu.py`` (a 1M-point cloud at the
+    default ``n_per``)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        c + rng.normal(0, sigma, (n_per, 3)).astype(np.float32)
+        for c in np.array(BLOB_CENTERS, np.float32)])

@@ -220,15 +220,20 @@ def test_default_device_is_the_card():
 
 
 def test_not_ported_yet_raises():
-    """What is not ported raises: the sequential grower (any growth_mode
-    but "batched"). Temporal seeds and the mean shift, which raised here
-    until they were ported, run (tests/test_torch_temporal.py and
+    """Every option of the Segmenter is ported, so only a growth mode JAX
+    does not have raises. The sequential grower, temporal seeds and the
+    mean shift, which raised here until they were ported, run
+    (tests/test_torch_planar_seq*.py, tests/test_torch_temporal.py and
     tests/test_torch_mean_shift.py hold them to JAX)."""
     pts, origin = fixtures.synthetic_room_cloud(24, 24, f=24.0, seed=2)
-    with pytest.raises(NotImplementedError, match="batched"):
+    with pytest.raises(ValueError, match="growth_mode"):
         pipeline.Segmenter(config.SegmenterConfig(
-            planar=config.PlanarRegionConfig(growth_mode="wavefront")),
+            planar=config.PlanarRegionConfig(growth_mode="bfs")),
             device="cpu")
+    wavefront = pipeline.Segmenter(config.SegmenterConfig(
+        planar=config.PlanarRegionConfig(growth_mode="wavefront")),
+        device="cpu")
+    assert wavefront.segment_frame(pts, origin).planar_regions
     seg = pipeline.Segmenter(device="cpu")
     first = seg.segment_frame(pts, origin)
     assert first.planar_regions

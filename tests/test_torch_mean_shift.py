@@ -239,8 +239,10 @@ def test_segment_clusters_while_matches_jax(need_sizes, half_window):
         jnp.asarray(pts), jnp.asarray(labels),
         jnp.arange(hw - 1, -1, -1, dtype=jnp.int32), cfg,
         canonical_seeds=True, need_sizes=need_sizes)
-    got = cluster.segment_clusters(_t(pts)[None], _t(labels)[None],
-                                   port_cfg(cfg), need_sizes=need_sizes)
+    got = cluster.segment_clusters(
+        _t(pts)[None], _t(labels)[None],
+        cluster.canonical_seed_vector(64, 80), port_cfg(cfg),
+        canonical_seeds=True, need_sizes=need_sizes)
     for name in ("labels", "num_regions", "region_sizes", "roots"):
         np.testing.assert_array_equal(getattr(got, name)[0].numpy(),
                                       np.asarray(getattr(want, name)),
