@@ -108,7 +108,24 @@ final result line):
      with it on >= 99% of the points; both timed;
  22. ``Segmenter`` with the sequential grower (hybrid, wavefront) on a
      120x160 room frame on the card, equal to the same frame on the CPU,
-     counted (B2 in the cluster stage; B1 and B3 not).
+     counted (B2 in the cluster stage; B1 and B3 not);
+ 23. the column-sharded step (``parallel/sharded.build_sharded_segment_step``)
+     on the VGA room and cluttered frames over 2 and then 4 ranks:
+     processes sharing the card (``cuda:0``) in a gloo group over a
+     FileStore, each collective staged through host memory (NCCL refuses
+     two ranks on one device); on every rank B2 (the local CCL on global
+     labels) and B3 (the sharded flood's local rounds) must launch, the
+     labels equal the ranks' ``impl="plain"`` run and a rerun
+     (bit-identical), and against the 1-rank step on the card the region
+     and cluster counts are equal and the labels and planes within JAX's
+     bound (tests/test_sharded.py: >= 99% of the labels, plane |dot| >
+     0.999); ms per step by CUDA events; the ranks also run the 128x160
+     scenes of ``jax_sharded_128x160.npz`` and must give JAX's labels and
+     counts exactly (planes within the plane tolerance);
+ 24. protos: the cluttered VGA frame's detected objects and its cloud
+     through the port's proto codec (``protos/pcseg_pb2.py``, no
+     protobuf), bytes equal after a parse, and the objects and channels
+     equal what went in.
 
 The line before the last lists the kernels with their bounds; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card, the CUDA
@@ -201,6 +218,21 @@ UNORG_CASES = {
     "mean_shift": dict(cell_size=0.125, grid_shape=(512, 512),
                        iterations=5),
 }
+
+
+# the sharded step (phase 23): rank counts (processes sharing the card
+# over gloo), JAX's bound for the sharded step against one device
+# (tests/test_sharded.py:117-160: >= 99% of the labels agree, plane normals
+# |dot| > 0.999), the 128x160 golden's scenes ((generator, seed);
+# tests/test_torch_sharded_step.py writes jax_sharded_128x160.npz from
+# them) and the time limits of the group and of each rank
+SHARDED_RANKS = (2, 4)
+SHARDED_AGREE, SHARDED_DOT = 0.99, 0.999
+SHARDED_GOLDEN_SHAPE = (128, 160)
+SHARDED_GOLDEN_SCENES = {"room": ("synthetic_room_cloud", 5),
+                         "cluttered": ("synthetic_cluttered_room_cloud", 3)}
+SHARDED_GROUP_TIMEOUT_S = 300
+SHARDED_RANK_TIMEOUT_S = 420
 
 
 def plane_tolerance(points):
@@ -941,6 +973,9 @@ def main():
     unorg_times, voxel_b2, unorg_b2 = unorganized_phases(
         torch, card, dev, reset_counts, read_counts, kernels_mod)
     seq_times = sequential_phase(torch, card, dev, reset_counts, read_counts)
+    sharded_times, sharded_launches = sharded_phase(torch, card, dev, scenes,
+                                                    rays, origin)
+    sharded_times.update(proto_phase(torch, card, dev, scenes, rays, origin))
 
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
@@ -966,16 +1001,23 @@ def main():
              ms=c_ms, ms_per_call_of_10=c_10, plain_ms=c_plain,
              bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
              rounds_run=c_rounds, launches_unorganized_euclid=unorg_b2,
-             voxel_grid=voxel_b2),
+             voxel_grid=voxel_b2,
+             launches_sharded_per_rank={
+                 n: {s: [c[0] for c in per] for s, per in v.items()}
+                 for n, v in sharded_launches.items()}),
         dict(name="flood_packed", route="cuda",
              source="pcseg_tpu_torch/csrc/flood_packed.cu",
              replaces="pcseg_tpu/models/planar_batched.py:133",
              launches=counts64["flood_packed"], max_abs_err=f_err,
              ms=f_ms, ms_per_call_of_10=f_10, plain_ms=f_plain,
-             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None),
+             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
+             launches_sharded_per_rank={
+                 n: {s: [c[1] for c in per] for s, per in v.items()}
+                 for n, v in sharded_launches.items()}),
     ]
     emit("times_options", card=card, **opt_times)
     emit("times_unorganized", card=card, **unorg_times, **seq_times)
+    emit("times_sharded", card=card, **sharded_times)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1627,5 +1669,287 @@ def stage_profile(torch, card, segs, stream, scenes, rays, origin,
              profile=profile_window(torch, run))
 
 
+def proto_phase(torch, card, dev, scenes, rays, origin):
+    """Phase 24: the cluttered VGA frame's detected objects
+    (``segment_frame_stream``, 32 slots) and its cloud (points and the
+    frame's normals) through the port's proto codec: serialised, parsed
+    and serialised again to the same bytes; the parsed planes, object
+    classes, point counts and cloud channels equal what went in. Returns
+    the times."""
+    from pcseg_tpu_torch.models import extract, pipeline
+    from pcseg_tpu_torch.ops import normals as normals_op
+    from pcseg_tpu_torch.ops import unproject
+    from pcseg_tpu_torch.protos import pcseg_pb2
+    from pcseg_tpu_torch.utils import cloud as cloud_lib
+    from pcseg_tpu_torch.utils import io
+
+    d16 = scenes["cluttered"]
+    res = pipeline.Segmenter(device=dev).segment_frame_stream(d16, rays,
+                                                              origin)
+    pts = torch.from_numpy(unproject.unproject_range_np(d16, rays))
+    nrm = normals_op.compute_normals_organized(
+        pts[None].to(dev), torch.from_numpy(origin).to(dev))[0].cpu()
+    cloud = cloud_lib.PointCloud(points=pts, normals=nrm)
+    t0 = time.perf_counter()
+    obj_bytes = extract.detected_objects_proto(res.objects) \
+        .SerializeToString()
+    t1 = time.perf_counter()
+    objs = pcseg_pb2.DetectedObjectsProto.FromString(obj_bytes)
+    t2 = time.perf_counter()
+    cloud_bytes = io.cloud_to_proto(cloud).SerializeToString()
+    t3 = time.perf_counter()
+    back = io.proto_to_cloud(
+        pcseg_pb2.MultichannelCloudProto.FromString(cloud_bytes))
+    t4 = time.perf_counter()
+    same_bytes = (objs.SerializeToString() == obj_bytes
+                  and pcseg_pb2.MultichannelCloudProto.FromString(
+                      cloud_bytes).SerializeToString() == cloud_bytes)
+    planes_ok = all(
+        (o.plane is None) == (p.WhichOneof("geometry") == "cluster_geometry")
+        and o.object_class == p.object_class
+        and len(getattr(p, p.WhichOneof("geometry")).points_xyz)
+        == 3 * len(o.points)
+        and (o.plane is None or np.allclose(
+            extract.plane_from_proto(p.planar_geometry.plane), o.plane,
+            atol=1e-6))
+        for o, p in zip(res.objects, objs.detected_objects))
+    cloud_ok = all(torch.equal(torch.nan_to_num(getattr(back, k), 7.0),
+                               torch.nan_to_num(getattr(cloud, k), 7.0))
+                   for k in ("points", "normals"))
+    ok = (same_bytes and planes_ok and cloud_ok
+          and len(objs.detected_objects) == len(res.objects) > 0)
+    times = dict(objects_serialize_ms=(t1 - t0) * 1e3,
+                 objects_parse_ms=(t2 - t1) * 1e3,
+                 cloud_serialize_ms=(t3 - t2) * 1e3,
+                 cloud_parse_ms=(t4 - t3) * 1e3)
+    emit("protos", card=card, objects=len(res.objects),
+         objects_bytes=len(obj_bytes), cloud_bytes=len(cloud_bytes),
+         bytes_round_trip_equal=same_bytes, objects_equal=planes_ok,
+         cloud_channels_equal=cloud_ok, **times)
+    if not ok:
+        fail("the proto round trips of the cluttered VGA frame disagree")
+    return times
+
+
+def sharded_golden_points():
+    """The 128x160 golden's scenes: {name: ([H, W, 3] points, origin)}."""
+    from pcseg_tpu_torch.utils import synthetic
+    h, w = SHARDED_GOLDEN_SHAPE
+    return {name: getattr(synthetic, fn)(h, w, f=float(h), seed=seed)
+            for name, (fn, seed) in SHARDED_GOLDEN_SCENES.items()}
+
+
+def sharded_rank(rank, world, tmp):
+    """One rank of phase 23 (``chip_smoke.py --sharded-rank R N DIR``): a
+    gloo group over a FileStore in DIR on the card's CUDA tensors; on each
+    VGA scene the step with the kernels (counted, timed), its plain run and
+    a timed rerun, then the golden's scenes; writes its column blocks and
+    the replicated tables to DIR."""
+    import torch
+    from pcseg_tpu_torch.kernels import ccl_gated, flood_packed
+    from pcseg_tpu_torch.parallel import distributed, sharded
+
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store = torch.distributed.FileStore(os.path.join(tmp, f"store{world}"),
+                                        world)
+    distributed.initialize("gloo", store=store, world_size=world, rank=rank,
+                           timeout_s=SHARDED_GROUP_TIMEOUT_S)
+    comm = distributed.make_group(device="cuda:0")
+    step = sharded.build_sharded_segment_step(comm)
+    step_plain = sharded.build_sharded_segment_step(comm, impl="plain")
+    out = {"transport": np.array(comm.transport)}
+
+    def run(s, pts, origin):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = s(distributed.local_columns(pts, comm), origin)
+        e1.record()
+        torch.cuda.synchronize()
+        return res, e0.elapsed_time(e1)
+
+    def keep(key, res):
+        out[key + "_labels"] = res.labels.cpu().numpy()
+        out[key + "_num_regions"] = res.planar.num_regions.cpu().numpy()
+        out[key + "_num_clusters"] = res.num_clusters.cpu().numpy()
+        out[key + "_planes"] = res.planar.planes.cpu().numpy()
+
+    with np.load(os.path.join(tmp, "inputs.npz")) as data:
+        origin = data["origin"]
+        scenes = data["scenes"].tolist()
+        run(step, data[scenes[0]], origin)  # warm-up
+        for name in scenes:
+            pts = data[name]
+            for m in (ccl_gated, flood_packed):
+                m.launches = 0
+            g0 = comm.gathers
+            res, ms = run(step, pts, origin)
+            out[name + "_launches"] = np.array([ccl_gated.launches,
+                                                flood_packed.launches])
+            out[name + "_gathers"] = np.array(comm.gathers - g0)
+            keep(name, res)
+            keep(name + "_plain", run(step_plain, pts, origin)[0])
+            again, ms2 = run(step, pts, origin)
+            keep(name + "_rerun", again)
+            out[name + "_ms"] = np.array([ms, ms2])
+        for name in SHARDED_GOLDEN_SCENES:
+            keep("golden_" + name, run(step, data["golden_" + name],
+                                       data["golden_" + name + "_origin"])[0])
+    np.savez(os.path.join(tmp, f"n{world}_rank{rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
+def sharded_phase(torch, card, dev, scenes, rays, origin):
+    """Phase 23: ``build_sharded_segment_step`` on the VGA room and
+    cluttered frames over 2 and then 4 ranks, processes sharing the card
+    over gloo (NCCL refuses two ranks on one device), against the 1-rank
+    step on the card; the 128x160 golden. Returns (times, {rank count:
+    per-rank [B2, B3] launches per scene})."""
+    import tempfile
+    from pcseg_tpu_torch.ops import unproject
+    from pcseg_tpu_torch.parallel import halo, sharded
+
+    t_start = time.perf_counter()
+    pts = {name: unproject.unproject_range_np(d16, rays)
+           for name, d16 in scenes.items()}
+    step1 = sharded.build_sharded_segment_step(halo.Comm(device=dev))
+    step1(pts["room"], origin)  # warm-up
+    ref, times = {}, {}
+    for name, p in pts.items():
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        res = step1(p, origin)
+        t1.record()
+        torch.cuda.synchronize()
+        times[f"n1_{name}_ms"] = t0.elapsed_time(t1)
+        ref[name] = dict(labels=res.labels.cpu().numpy(),
+                         num_regions=int(res.planar.num_regions),
+                         num_clusters=int(res.num_clusters),
+                         planes=res.planar.planes.cpu().numpy())
+    gold = np.load(os.path.join(ROOT, "pcseg_tpu_torch", "testdata",
+                                "jax_sharded_128x160.npz"))
+    gpts = sharded_golden_points()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dict(origin=origin, scenes=np.array(list(pts)), **pts)
+        for name, (p, o) in gpts.items():
+            inputs["golden_" + name] = p
+            inputs["golden_" + name + "_origin"] = o
+        np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        for n in SHARDED_RANKS:
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                 str(r), str(n), tmp], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for r in range(n)]
+            logs = []
+            try:
+                for p in procs:
+                    logs.append(p.communicate(
+                        timeout=SHARDED_RANK_TIMEOUT_S)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                if p.returncode != 0:
+                    print(log[-6000:], file=sys.stderr, flush=True)
+                    fail(f"sharded rank {r} of {n} exited {p.returncode}")
+            ranks = [np.load(os.path.join(tmp, f"n{n}_rank{r}.npz"))
+                     for r in range(n)]
+
+            def grid(key):
+                return np.concatenate([d[key] for d in ranks], axis=1)
+
+            def repl(key):
+                v = ranks[0][key]
+                if any(d[key].tobytes() != v.tobytes() for d in ranks[1:]):
+                    fail(f"sharded {key} differs between the ranks ({n})")
+                return v
+
+            launches[n] = {}
+            for name in pts:
+                lab = grid(name + "_labels")
+                num = int(repl(name + "_num_regions"))
+                planes = repl(name + "_planes")
+                want = ref[name]
+                agree = float((lab == want["labels"]).mean())
+                dots = [abs(float(planes[i, :3] @ want["planes"][i, :3]))
+                        for i in range(min(num, want["num_regions"]))]
+                per_rank = [d[name + "_launches"].tolist() for d in ranks]
+                launches[n][name] = per_rank
+                same_plain = (np.array_equal(lab, grid(name + "_plain_labels"))
+                              and num == int(repl(name + "_plain_num_regions"))
+                              and np.array_equal(
+                                  repl(name + "_num_clusters"),
+                                  repl(name + "_plain_num_clusters")))
+                plain_err = float(np.abs(
+                    planes - repl(name + "_plain_planes")).max())
+                rerun = all(np.array_equal(grid(name + k), grid(
+                    name + "_rerun" + k)) for k in ("_labels",)) and all(
+                    repl(name + k).tobytes() == repl(
+                        name + "_rerun" + k).tobytes()
+                    for k in ("_num_regions", "_num_clusters", "_planes"))
+                ms = [d[name + "_ms"].tolist() for d in ranks]
+                times[f"n{n}_{name}_ms"] = statistics.median(ms[0])
+                emit("sharded_step", ranks=n, scene=name, shape=[H, W],
+                     card=card, transport=str(repl("transport")),
+                     num_regions=num, one_rank_num_regions=want[
+                         "num_regions"],
+                     num_clusters=int(repl(name + "_num_clusters")),
+                     one_rank_num_clusters=want["num_clusters"],
+                     launches_ccl_gated_flood_packed_per_rank=per_rank,
+                     collectives_per_step=int(repl(name + "_gathers")),
+                     ms_per_step_per_rank=ms,
+                     one_rank_ms=times[f"n1_{name}_ms"],
+                     labels_counts_equal_plain=same_plain,
+                     planes_max_abs_err_plain=plain_err, atol=PLANE_ATOL,
+                     bit_identical_rerun=rerun, agreement_vs_one_rank=agree,
+                     min_plane_dot_vs_one_rank=min(dots) if dots else None,
+                     bound=[SHARDED_AGREE, SHARDED_DOT])
+                if not (same_plain and plain_err <= PLANE_ATOL and rerun):
+                    fail(f"sharded step on {n} ranks ({name}) disagrees with "
+                         "its plain run or its rerun")
+                if num != want["num_regions"] or agree < SHARDED_AGREE \
+                        or any(d <= SHARDED_DOT for d in dots) \
+                        or int(repl(name + "_num_clusters")) \
+                        != want["num_clusters"]:
+                    fail(f"sharded step on {n} ranks ({name}) is outside "
+                         "JAX's bound against the 1-rank step")
+                if any(c[0] <= 0 or c[1] <= 0 for c in per_rank):
+                    fail(f"sharded step on {n} ranks ({name}) did not "
+                         f"launch B2 and B3 on every rank: {per_rank}")
+            bad = []
+            for name, (p, _) in gpts.items():
+                pre = f"n{n}_{name}__"
+                lab = grid(f"golden_{name}_labels")
+                num = int(gold[pre + "num_regions"])
+                planes = repl(f"golden_{name}_planes")
+                worst = max([float(np.abs(planes[r] - gold[pre + "planes"][r])
+                                   .max()) / plane_tolerance(
+                    p[gold[pre + "labels"] == r]) for r in range(num)] or [0])
+                ok = (np.array_equal(lab, gold[pre + "labels"])
+                      and int(repl(f"golden_{name}_num_regions")) == num
+                      and int(repl(f"golden_{name}_num_clusters"))
+                      == int(gold[pre + "num_clusters"]) and worst <= 1.0)
+                emit("sharded_golden", ranks=n, scene=name,
+                     shape=list(SHARDED_GOLDEN_SHAPE), exact=ok,
+                     labels_differing=int((lab != gold[pre + "labels"])
+                                          .sum()),
+                     planes_worst_err_over_tolerance=worst)
+                bad += [] if ok else [name]
+            if bad:
+                fail(f"sharded step on {n} ranks differs from the JAX "
+                     f"golden on {bad}")
+    times["phase_23_seconds"] = time.perf_counter() - t_start
+    return times, launches
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(*sys.argv[2:5])
+    else:
+        main()

@@ -88,19 +88,26 @@ def _select_frames(active, new: _Slots, old: _Slots) -> _Slots:
                     for n, o in zip(new, old)])
 
 
-def rank_grid_from_seed_vector(seed_indices, seed_valid, h, w):
+def rank_grid_from_seed_vector(seed_indices, seed_valid, h, w,
+                               w_local=None, col0=0):
     """[B, H, W] int32 pop-rank grid from ranked seed vectors [B, S] (the
     reference's grow loop pops back-to-front, so the LAST entry gets rank
-    0)."""
+    0). ``w`` is the GLOBAL column count; ``w_local``/``col0`` carve out a
+    column shard ([B, H, W_local]; default the whole grid)."""
     b, s = seed_indices.shape
     dev = seed_indices.device
+    w_local = w if w_local is None else w_local
     rank = ((s - 1) - torch.arange(s, dtype=torch.int32, device=dev)) \
         .expand(b, s)
     ok = seed_valid & (seed_indices >= 0) & (seed_indices < h * w)
-    flat_cm = torch.full((b, h * w), INF_RANK, dtype=torch.int32, device=dev)
-    flat_cm.scatter_reduce_(1, seed_indices.clamp(0, h * w - 1).long(),
-                            torch.where(ok, rank, INF_RANK), "amin")
-    return flat_cm.reshape(b, w, h).transpose(1, 2).contiguous()
+    c_local = torch.div(seed_indices, h, rounding_mode="floor") - col0
+    ok = ok & (c_local >= 0) & (c_local < w_local)
+    flat_cm = torch.full((b, h * w_local), INF_RANK, dtype=torch.int32,
+                         device=dev)
+    flat_cm.scatter_reduce_(
+        1, (c_local.clamp(0, w_local - 1) * h + seed_indices % h).long(),
+        torch.where(ok, rank, INF_RANK), "amin")
+    return flat_cm.reshape(b, w_local, h).transpose(1, 2).contiguous()
 
 
 def _dilate4(m):
@@ -122,29 +129,96 @@ def _moment_features(px, py, pz):
                         pz * pz, px, py, pz, torch.ones_like(px)], dim=-1)
 
 
-def _masked_moments(mask, feat):
+def _masked_moments(mask, feat, psum=None):
     """Moment sums of the cells in ``mask`` [B, K, N] over features
     [B, N, 10] (or [B, K, N, 10]): f64 sums rounded to f32, like the
-    epoch kernel."""
+    epoch kernel. ``psum`` merges a column shard's f64 sums across the
+    shards before the rounding."""
     f64 = feat.to(torch.float64)
     m64 = mask.to(torch.float64)
     if feat.dim() == 3:
         sums = torch.bmm(m64, f64)
     else:
         sums = torch.einsum("bkn,bknf->bkf", m64, f64)
+    if psum is not None:
+        sums = psum(sums)
     return sums.to(torch.float32)
+
+
+class GrowerBackend:
+    """The hooks of :func:`grow_planar_regions_batched` that differ between
+    one device and a column shard (JAX's GrowerBackend contract;
+    parallel/sharded.py gives the sharded ones). Masks are
+    [B, K, H, W_local] bool; slot tables are replicated. These defaults
+    are the single-device grower's own operations."""
+
+    w_total = None  # global column count (None: the local one)
+    col0 = 0        # global column of local column 0
+
+    def __init__(self, impl=None):
+        self.impl = impl
+
+    def psum(self, x):
+        """Sum a replicated-shape value across the shards."""
+        return x
+
+    def pmin(self, x):
+        return x
+
+    def pmax(self, x):
+        return x
+
+    def flood(self, gate, src, rounds):
+        """The 4-connected flood of ``src`` through ``gate`` on packed
+        word planes (kernels/flood_packed.py, B3)."""
+        b, k, h, w = gate.shape
+        nw = -(-k // 32)
+        reach = flood_packed.flood_packed(
+            flood_packed.pack_bits(gate).reshape(b * nw, h, w),
+            flood_packed.pack_bits(src & gate).reshape(b * nw, h, w), rounds,
+            impl=self.impl)
+        return flood_packed.unpack_bits(reach.reshape(b, nw, h, w), k)
+
+    def dilate_rings(self, members, gate, n):
+        """``n`` rings of gated 4-neighbourhood dilation."""
+        m = members & gate
+        for _ in range(n):
+            m = m | (_dilate4(m) & gate)
+        return m
+
+    def dilate4(self, members):
+        """The members and their ungated 4-neighbourhood ring."""
+        return members | _dilate4(members)
+
+    def gather_cells(self, points, normals, lin_idx):
+        """(points, normals) [B, K, 3] at global col-major ``lin_idx``
+        [B, K]."""
+        h, w = points.shape[1:3]
+        bidx = torch.arange(points.shape[0], device=points.device)[:, None]
+        r = (lin_idx % h).long()
+        c = (lin_idx // h).clamp(0, w - 1).long()
+        return points[bidx, r, c], normals[bidx, r, c]
 
 
 def grow_planar_regions_batched(
         points: torch.Tensor, normals: torch.Tensor, labels: torch.Tensor,
         seed_rank_grid: torch.Tensor,
         config: PlanarRegionConfig = PlanarRegionConfig(),
-        impl=None) -> PlanarRegions:
+        impl=None, backend: GrowerBackend = None) -> PlanarRegions:
     """Batched planar growth over [B, H, W, 3] points/normals, [B, H, W]
     int32 input labels and the [B, H, W] int32 seed rank grid
     (ops/seeds.py). ``impl="plain"`` forces the epoch and flood kernels'
-    plain versions (tests and the smoke script only)."""
-    b, h, w = points.shape[:3]
+    plain versions (tests and the smoke script only).
+
+    ``backend`` (a :class:`GrowerBackend`, parallel/sharded.py) grows a
+    column shard: W is then the local column count, the slot tables come
+    out replicated, and the grower takes JAX's sharded branches: tile
+    winners from per-shard minima, stage A on the full grid (no patches)
+    and the flood epochs at any K (never the epoch kernel)."""
+    b, h, w = points.shape[:3]   # w: the LOCAL column count
+    bk = backend if backend is not None else GrowerBackend(impl)
+    w_total = w if bk.w_total is None else bk.w_total
+    col0 = bk.col0
     hw = h * w
     dev = points.device
     dtype = points.dtype
@@ -176,9 +250,7 @@ def grow_planar_regions_batched(
 
     def gather_cells(lin_idx):
         """(points, normals) [B, K, 3] at col-major ``lin_idx`` [B, K]."""
-        r = (lin_idx % h).long()
-        c = (lin_idx // h).clamp(0, w - 1).long()
-        return points[bidx, r, c], normals[bidx, r, c]
+        return bk.gather_cells(points, normals, lin_idx)
 
     def solve_with_hint(sums, hint):
         m = plane_fit.PlaneMoments(s2=sums[..., :6], s1=sums[..., 6:9],
@@ -216,16 +288,33 @@ def grow_planar_regions_batched(
 
     # --- founders: best uncovered seed per 8x8 tile of the grid ----------
     th = -(-h // N_TILES_AXIS)
-    tw = -(-w // N_TILES_AXIS)
+    tw = -(-w_total // N_TILES_AXIS)
     n_tiles = N_TILES_AXIS * N_TILES_AXIS
     hp, wp = N_TILES_AXIS * th, N_TILES_AXIS * tw
     rows_g = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
-    cols_g = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    # global columns (a shard's start at col0)
+    cols_g = torch.arange(w, dtype=torch.int32, device=dev)[None, :] + col0
     lin_grid = cols_g * h + rows_g
+    tile_id = ((rows_g // th) * N_TILES_AXIS + cols_g // tw) \
+        .reshape(-1).long().expand(b, hw)
 
     def tile_winners(avail_rank):
         """Per tile, the (rank, col-major index) of its best seed:
         ([B, 64], [B, 64])."""
+        if backend is not None:
+            # per-shard minima over the global tiles, combined with pmin;
+            # the rank holder is unique, so the min index among the cells
+            # attaining the tile's rank is the winner's cell
+            def smin(vals, fill):
+                out = torch.full((b, n_tiles), fill, dtype=torch.int32,
+                                 device=dev)
+                return bk.pmin(out.scatter_reduce(1, tile_id, vals, "amin"))
+            flat = avail_rank.reshape(b, hw)
+            val = smin(flat, INF_RANK)
+            att = torch.where(flat == torch.gather(val, 1, tile_id),
+                              lin_grid.reshape(1, hw), BIG_LIN)
+            return val, smin(att, BIG_LIN)
+
         def tmin(g, fill):
             gp = torch.nn.functional.pad(g, (0, wp - w, 0, hp - h),
                                          value=fill)
@@ -267,11 +356,13 @@ def grow_planar_regions_batched(
             fit_count=torch.where(newly, 0, slots.fit_count))
 
     def onehot(lin_idx):
-        """[B, K, H, W] one-hot of col-major cells."""
+        """[B, K, H, W] one-hot of global col-major cells (nothing where
+        a shard does not own the cell)."""
         oh = torch.zeros((b, k_cap, h, w), dtype=torch.bool, device=dev)
         kk = torch.arange(k_cap, device=dev)[None]
-        oh[bidx, kk, (lin_idx % h).long(),
-           (lin_idx // h).clamp(0, w - 1).long()] = True
+        c = (lin_idx // h).clamp(0, w_total - 1) - col0
+        oh[bidx, kk, (lin_idx % h).long(), c.clamp(0, w - 1).long()] = \
+            (c >= 0) & (c < w)
         return oh
 
     # --- full-grid stage A (small grids) ---------------------------------
@@ -285,19 +376,24 @@ def grow_planar_regions_batched(
         return claim, members & (claim[:, None] == kk[None, :, None, None])
 
     def refit_moments(slots):
-        sums = _masked_moments(slots.members.reshape(b, k_cap, hw), feat)
+        mask = slots.members.reshape(b, k_cap, hw)
+        sums = _masked_moments(mask, feat) if backend is None \
+            else _masked_moments(mask, feat, bk.psum)
         return solve_with_hint(sums, slots.hint)
 
     def settle(slots, new_members):
         _, new_members = claims_of(new_members, slots.rank)
-        counts = new_members.sum(dim=(2, 3), dtype=torch.int32)
+        counts = bk.psum(new_members.sum(dim=(2, 3), dtype=torch.int32))
         masked_rank = torch.where(new_members, rank_grid[:, None], INF_RANK)
-        member_rank, best_flat = masked_rank.reshape(b, k_cap, hw).min(dim=2)
+        local_min, best_flat = masked_rank.reshape(b, k_cap, hw).min(dim=2)
+        member_rank = bk.pmin(local_min)
         alive = slots.alive & (counts > 0) & (member_rank < INF_RANK)
         br = torch.div(best_flat, w, rounding_mode="floor")
-        bc = best_flat % w
-        anchor_lin = torch.where(member_rank < INF_RANK, bc * h + br,
-                                 BIG_LIN).to(torch.int32)
+        bc = best_flat % w + col0
+        # the rank holder is unique: exactly one shard attains the min
+        anchor_lin = bk.pmin(torch.where(
+            (local_min == member_rank) & (member_rank < INF_RANK),
+            bc * h + br, BIG_LIN).to(torch.int32))
         new_seed_idx = torch.where(alive, anchor_lin, slots.seed_idx)
         slots = reanchor(slots, alive, member_rank, new_seed_idx)
         slots = slots._replace(members=new_members & alive[..., None, None])
@@ -328,34 +424,28 @@ def grow_planar_regions_batched(
     def generation(slots):
         slots = assign(slots)
         gate = slot_gate(slots)
-        m = (slots.members | onehot(slots.seed_idx)) & gate
-        for _ in range(STAGE_A_RINGS):
-            m = m | (_dilate4(m) & gate)
+        m = bk.dilate_rings(slots.members | onehot(slots.seed_idx), gate,
+                            STAGE_A_RINGS)
         return settle(slots, m)
 
     def flood_epoch(slots, radius):
-        """One closure epoch for K > 32 (JAX's ``epoch``): the gates cut
-        to the Chebyshev box of ``radius`` around each anchor (members
-        always pass), flooded from the anchors on packed word planes, then
-        settled."""
+        """One closure epoch for K > 32, or at any K with a backend (JAX's
+        ``epoch``): the gates cut to the Chebyshev box of ``radius`` around
+        each anchor (members always pass), flooded from the anchors on
+        packed word planes, then settled."""
         slots = assign(slots)
         ar = (slots.seed_idx % h)[..., None, None]
-        ac = (slots.seed_idx // h).clamp(0, w - 1)[..., None, None]
+        ac = (slots.seed_idx // h).clamp(0, w_total - 1)[..., None, None]
         inbox = ((rows_g - ar).abs() <= radius) & ((cols_g - ac).abs()
                                                    <= radius)
         gate = slot_gate(slots) & (inbox | slots.members)
-        src = onehot(slots.seed_idx) & gate
-        nw = -(-k_cap // 32)
-        reach = flood_packed.flood_packed(
-            flood_packed.pack_bits(gate).reshape(b * nw, h, w),
-            flood_packed.pack_bits(src).reshape(b * nw, h, w), FLOOD_ROUNDS,
-            impl=impl)
-        return settle(slots, flood_packed.unpack_bits(
-            reach.reshape(b, nw, h, w), k_cap))
+        return settle(slots, bk.flood(gate, onehot(slots.seed_idx),
+                                      FLOOD_ROUNDS))
 
     # --- patched stage A (grids >= 64x64 and >= 4 patches) ---------------
     span = STAGE_A_GENS * STAGE_A_RINGS
-    use_patches = (h >= PATCH and w >= PATCH and hw >= 4 * PATCH * PATCH
+    use_patches = (backend is None and h >= PATCH and w >= PATCH
+                   and hw >= 4 * PATCH * PATCH
                    and PATCH // 2 - span - STAGE_A_RINGS >= 1)
 
     def stage_a_patched(slots):
@@ -461,24 +551,26 @@ def grow_planar_regions_batched(
     # --- stage B: closure epochs ------------------------------------------
     radius = 2 * span
     radii = []
-    while radius < max(h, w):
+    while radius < max(h, w_total):
         radii.append(radius)
         radius = (radius * 4) // 3
-    radii += [max(h, w)] * (CLOSURE_EPOCHS + 1)
-    if k_cap <= 32:
+    radii += [max(h, w_total)] * (CLOSURE_EPOCHS + 1)
+    if k_cap <= 32 and backend is None:
         slots = run_word_epochs(
             slots, radii, points=points, rank_grid=rank_grid,
             eligible0=eligible0, pick_founders=pick_founders, found=found,
             reanchor=reanchor, solve_with_hint=solve_with_hint,
             apply_refit=apply_refit, tau=tau, impl=impl)
     else:
-        first_full = _first_full(radii, h, w)
+        first_full = _first_full(radii, h, w_total)
         active = torch.ones(b, dtype=torch.bool, device=dev)
         for i, radius in enumerate(radii):
             if i > 0 and not bool(active.any()):
                 break
             new = flood_epoch(slots, radius)
-            stable = (new.members == slots.members).flatten(1).all(dim=1)
+            # replicated across the shards, so their loops stay in step
+            stable = bk.psum((new.members != slots.members).flatten(1)
+                             .sum(dim=1, dtype=torch.int32)) == 0
             slots = _select_frames(active, new, slots)
             if i >= first_full:
                 active = active & ~stable
@@ -487,15 +579,15 @@ def grow_planar_regions_batched(
     _, sol_r = refit_moments(slots)
     robust = slots.alive & sol_r.valid & (sol_r.mid_ratio >= 3e-3)
     mem_f = slots.members.reshape(b, k_cap, hw).to(torch.float64)
-    counts_f = torch.clamp_min(mem_f.sum(dim=2).to(torch.float32), 1.0)
-    dil = (slots.members | _dilate4(slots.members)).reshape(b, k_cap, hw) \
-        .to(torch.float64)
-    adj = torch.bmm(dil, mem_f.transpose(1, 2)) > 0
+    counts_f = torch.clamp_min(bk.psum(mem_f.sum(dim=2)).to(torch.float32),
+                               1.0)
+    dil = bk.dilate4(slots.members).reshape(b, k_cap, hw).to(torch.float64)
+    adj = bk.psum(torch.bmm(dil, mem_f.transpose(1, 2))) > 0
     band = (_plane_dist(slots.plane, px[:, None], py[:, None], pz[:, None])
             < tau).reshape(b, k_cap, hw).to(torch.float64)
     # cover[l, w] = share of loser l's members within tau of w's plane
-    cover = torch.bmm(mem_f, band.transpose(1, 2)).to(torch.float32) \
-        / counts_f[..., None]
+    cover = bk.psum(torch.bmm(mem_f, band.transpose(1, 2))) \
+        .to(torch.float32) / counts_f[..., None]
     loser = slots.alive & ~robust
     pair = loser[:, :, None] & robust[:, None, :] & adj & (cover >= 0.9)
     win = torch.where(pair, slots.rank[:, None, :], INF_RANK).min(dim=2)[1]
@@ -513,7 +605,7 @@ def grow_planar_regions_batched(
 
     # --- final claims, acceptance, dense ids in rank order ---------------
     claim, members = claims_of(slots.members, slots.rank)
-    counts = members.sum(dim=(2, 3), dtype=torch.int32)
+    counts = bk.psum(members.sum(dim=(2, 3), dtype=torch.int32))
     accepted = slots.alive & (counts >= config.min_region_inliers)
     order = torch.argsort(torch.where(accepted, slots.rank, INF_RANK), dim=1,
                           stable=True)
@@ -551,8 +643,8 @@ def grow_planar_regions_batched(
         moments=plane_fit.PlaneMoments(
             s2=take(m.s2), s1=take(m.s1), w=take(m.w),
             normal_hint=take(m.normal_hint)),
-        overflow=((rank_grid < INF_RANK) & ~members.any(dim=1))
-        .any(dim=(1, 2)))
+        overflow=bk.psum(((rank_grid < INF_RANK) & ~members.any(dim=1))
+                         .sum(dim=(1, 2), dtype=torch.int32)) > 0)
 
 
 def _first_full(radii, h, w):

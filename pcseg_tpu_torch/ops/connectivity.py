@@ -76,7 +76,8 @@ def _gate_bits(points, eligible, squared_threshold, offsets):
 
 
 def connected_components_scan(points, eligible, squared_threshold,
-                              half_window, rounds=24, impl=None):
+                              half_window, rounds=24, impl=None,
+                              init_labels=None, big_value=None):
     """Gated CCL of [B, H, W, 3] points over the eligible cells.
 
     Returns [B, H, W] int32: the min col-major index of each cell's
@@ -84,12 +85,19 @@ def connected_components_scan(points, eligible, squared_threshold,
     window offsets (half_window <= 2) the gates ride in one int32 word
     through the CCL kernel; above that, as in JAX (which has no kernel
     there), one bool gate per offset through the same rounds in torch ops
-    on either device."""
+    on either device.
+
+    ``init_labels`` ([H, W] or [B, H, W] int32) and ``big_value`` let a
+    column shard start from GLOBAL col-major indices with the global
+    sentinel H*W_total (parallel/sharded.py); by default the local grid's
+    indices and H*W."""
     b, h, w = points.shape[:3]
-    big = h * w
+    big = h * w if big_value is None else int(big_value)
     offsets = window_offsets(half_window)
-    labels0 = torch.where(eligible, colmajor_index_grid(h, w, points.device),
-                          big).to(torch.int32).contiguous()
+    if init_labels is None:
+        init_labels = colmajor_index_grid(h, w, points.device)
+    labels0 = torch.where(eligible, init_labels.to(torch.int32), big) \
+        .to(torch.int32).expand(b, h, w).contiguous()
     if len(offsets) > 32:
         gates = window_gates(points, eligible, squared_threshold, offsets)
         out, _ = common.ccl_rounds(list(gates), labels0, offsets, rounds, big)

@@ -143,11 +143,13 @@ def rank_plane_support_seeds(count, qualifies, h, w, max_seeds):
 def seeds_from_plane_support(
         points: torch.Tensor, normals: torch.Tensor,
         params: SeedsFromPlaneSupportParams = SeedsFromPlaneSupportParams(),
-        seed_vector: bool = False) -> RankedSeeds:
+        seed_vector: bool = False,
+        transposed_parity: bool = True) -> RankedSeeds:
     """FindSeedPointsFromPlaneSupport over [B, H, W, 3] points/normals, in
-    the reference's transposed grid orientation. ``seed_vector=True`` also
-    ranks the top-``max_seeds`` seed vector (the sequential grower's
-    input)."""
+    the reference's transposed grid orientation, or with
+    ``transposed_parity=False`` the natural one (the corrected semantics of
+    the sharded step, parallel/sharded.py). ``seed_vector=True`` also ranks
+    the top-``max_seeds`` seed vector (the sequential grower's input)."""
     b, h, w = points.shape[:3]
     dev = points.device
     if h < params.neighborhood_size or w < params.neighborhood_size:
@@ -158,16 +160,18 @@ def seeds_from_plane_support(
             torch.full((b, h, w), SEED_RANK_INF, dtype=torch.int32,
                        device=dev),
             *((none, none.bool()) if seed_vector else ()))
-    count, center_ok = plane_support_counts(points.transpose(1, 2),
-                                            normals.transpose(1, 2), params)
+    if transposed_parity:
+        points, normals = points.transpose(1, 2), normals.transpose(1, 2)
+    count, center_ok = plane_support_counts(points, normals, params)
     qualifies = center_ok & (count >= params.min_num_support_points)
     rank_grid = plane_support_rank_grid(
         count, qualifies, h, w, cmax=params.neighborhood_size ** 2 + 1)
     vector = rank_plane_support_seeds(count, qualifies, h, w,
                                       params.max_seeds) \
         if seed_vector else ()
-    return RankedSeeds(count.transpose(1, 2).contiguous(), rank_grid,
-                       *vector)
+    count_rc = count.transpose(1, 2).contiguous() if transposed_parity \
+        else count
+    return RankedSeeds(count_rc, rank_grid, *vector)
 
 
 # -- average-normal seeds -----------------------------------------------------

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from pcseg_tpu import native as jnative
 from pcseg_tpu.models import cluster as jcluster
 from pcseg_tpu.models import unorganized as junorganized
 from pcseg_tpu.models.config import ClusterRegionConfig as JClusterConfig
@@ -26,6 +27,24 @@ from tests import fixtures
 from tests.test_torch_kernels import _t, cuda_device  # noqa: F401
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_private_cache(tmp_path_factory):
+    """JAX's host-ops loader (pcseg_tpu/native) builds its library in place
+    in a cache that every xdist worker shares, so a worker can load
+    another's half-written library ("file too short"); the loader then
+    returns None for the rest of the process and JAX's ``backend="host"``
+    raises. Before this module's first JAX host call, a worker without a
+    loaded library builds its own in a private directory (its
+    tmp_path_factory) and retries a failed load there."""
+    if jnative._LIB is None:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("PCSEG_NATIVE_CACHE",
+                      str(tmp_path_factory.mktemp("jax_native")))
+            mp.setattr(jnative, "_TRIED", False)
+            assert jnative.load_hostops() is not None, \
+                "JAX's host-ops library did not build"
 
 
 def nan_blobs(n_per=6000, seed=1):
