@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths on NVIDIA GPUs and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase; 25 and 26 on 2+ cards
+    python3 chip_smoke.py --nccl   # phases 1, 2, 23, 25 and 26; 2+ cards
 
 Phases (each prints one JSON line; any failure exits nonzero without the
 final result line):
@@ -114,7 +115,8 @@ final result line):
      processes sharing the card (``cuda:0``) in a gloo group over a
      FileStore, each collective staged through host memory (NCCL refuses
      two ranks on one device); on every rank B2 (the local CCL on global
-     labels) and B3 (the sharded flood's local rounds) must launch, the
+     labels) must launch once and B3 (the sharded flood's local rounds)
+     must launch, the
      labels equal the ranks' ``impl="plain"`` run and a rerun
      (bit-identical), and against the 1-rank step on the card the region
      and cluster counts are equal and the labels and planes within JAX's
@@ -125,7 +127,27 @@ final result line):
  24. protos: the cluttered VGA frame's detected objects and its cloud
      through the port's proto codec (``protos/pcseg_pb2.py``, no
      protobuf), bytes equal after a parse, and the objects and channels
-     equal what went in.
+     equal what went in;
+ 25. (two or more cards; run right after phase 23, whose groups it is
+     compared with) the sharded step with one rank per card over NCCL,
+     2 ranks on cards 0-1 and 4 on cards 0-3: processes started with
+     torchrun's environment (RANK, LOCAL_RANK, WORLD_SIZE, MASTER_ADDR,
+     MASTER_PORT) that join through ``distributed.initialize("nccl")``;
+     each rank prints its transport and current card (must be ``nccl``
+     and its LOCAL_RANK), gathers f64, int64, int32 and bool probes byte
+     for byte, and runs what a phase 23 rank runs; phase 23's rules hold,
+     B2 launches once per rank per step, and labels, counts and planes
+     are byte-equal to the gloo group's of the same rank count. Ranks of
+     both phases report the host seconds spent inside
+     ``Comm.all_gather`` per step;
+ 26. (two or more cards) in this process, card 0 current and no
+     ``set_device``, ``Segmenter(device=f"cuda:{k}").device_forward_stream``
+     on every card k at 32 and 64 slots on phase 3's VGA batches: labels,
+     counts and planes byte-equal to card 0's, with phases 3 and 9's
+     launch counts (each wrapper launches on its tensors' card).
+
+On one card the run prints that phases 25 and 26 need two or more cards,
+with the ``--nccl`` command, and goes on.
 
 The line before the last lists the kernels with their bounds; the last
 line is ``{"ok": true, "device": {...}}``. Needs a CUDA card, the CUDA
@@ -220,10 +242,11 @@ UNORG_CASES = {
 }
 
 
-# the sharded step (phase 23): rank counts (processes sharing the card
-# over gloo), JAX's bound for the sharded step against one device
-# (tests/test_sharded.py:117-160: >= 99% of the labels agree, plane normals
-# |dot| > 0.999), the 128x160 golden's scenes ((generator, seed);
+# the sharded step (phases 23 and 25): rank counts (processes sharing the
+# card over gloo; one rank per card over NCCL), JAX's bound for the
+# sharded step against one device (tests/test_sharded.py:117-160: >= 99%
+# of the labels agree, plane normals |dot| > 0.999), the 128x160 golden's
+# scenes ((generator, seed);
 # tests/test_torch_sharded_step.py writes jax_sharded_128x160.npz from
 # them) and the time limits of the group and of each rank
 SHARDED_RANKS = (2, 4)
@@ -505,27 +528,10 @@ def golden_mismatches(got, want, points, known_cells):
     return bad, listed, fits
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a GPU")
+def device_and_build(torch):
+    """Phases 1 and 2; returns the card's name and power limit."""
     from pcseg_tpu_torch import native
-    from pcseg_tpu_torch.kernels import (build, ccl_gated, epoch_word,
-                                         flood_packed)
-    from pcseg_tpu_torch.models import config, pipeline
-    from pcseg_tpu_torch.ops import connectivity, nansafe, unproject
-    from pcseg_tpu_torch.utils.synthetic import (
-        synthetic_cluttered_room_cloud, synthetic_room_cloud)
-
-    kernels_mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
-                   "flood_packed": flood_packed}
-
-    def reset_counts():
-        for m in kernels_mod.values():
-            m.launches = 0
-
-    def read_counts():
-        return {k: m.launches for k, m in kernels_mod.items()}
+    from pcseg_tpu_torch.kernels import build
 
     # 1. device
     smi = subprocess.run(
@@ -536,12 +542,12 @@ def main():
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     emit("device", card=card, kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), torch=torch.__version__,
+         count=torch.cuda.device_count(), cards=smi, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build (once, here: the rank processes of phases 23 and 25 load
+    # these libraries)
     t0 = time.perf_counter()
     kernel_s, ptxas = build.build_all()
     hostops = native.load_hostops() is not None
@@ -550,7 +556,15 @@ def main():
          dir=os.path.relpath(build.BUILD_DIR, ROOT), ptxas=ptxas)
     if not hostops:
         fail("the host-ops library (g++) did not build or load")
+    return card
 
+
+def vga_scenes():
+    """(ray table, sensor origin, {scene: [H, W] u16 range frame}): the
+    room and cluttered VGA scenes of every VGA phase."""
+    from pcseg_tpu_torch.ops import unproject
+    from pcseg_tpu_torch.utils.synthetic import (
+        synthetic_cluttered_room_cloud, synthetic_room_cloud)
     rays = unproject.camera_ray_table(H, W, f=float(H))
     origin = np.zeros(3, np.float32)
     scenes = {
@@ -559,6 +573,44 @@ def main():
         "cluttered": unproject.encode_range(
             synthetic_cluttered_room_cloud(H, W, f=float(H), seed=1)[0]),
     }
+    return rays, origin, scenes
+
+
+def kernel_counters():
+    """({name: kernel module}, reset, read) for the launch counts."""
+    from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
+    kernels_mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
+                   "flood_packed": flood_packed}
+
+    def reset_counts():
+        for m in kernels_mod.values():
+            m.launches = 0
+
+    def read_counts():
+        return {k: m.launches for k, m in kernels_mod.items()}
+
+    return kernels_mod, reset_counts, read_counts
+
+
+def result_line(torch):
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
+    from pcseg_tpu_torch.models import config, pipeline
+    from pcseg_tpu_torch.ops import connectivity, nansafe, unproject
+
+    kernels_mod, reset_counts, read_counts = kernel_counters()
+
+    card = device_and_build(torch)
+    dev = torch.device("cuda")
+    rays, origin, scenes = vga_scenes()
     batches = {name: torch.from_numpy(make_batch(u16, i)).to(dev)
                for i, (name, u16) in enumerate(scenes.items())}
     rays_d = torch.from_numpy(rays).to(dev)
@@ -973,9 +1025,19 @@ def main():
     unorg_times, voxel_b2, unorg_b2 = unorganized_phases(
         torch, card, dev, reset_counts, read_counts, kernels_mod)
     seq_times = sequential_phase(torch, card, dev, reset_counts, read_counts)
-    sharded_times, sharded_launches = sharded_phase(torch, card, dev, scenes,
-                                                    rays, origin)
+    cards = torch.cuda.device_count()
+    sharded_times, sharded_launches, nccl_launches = sharded_phase(
+        torch, card, dev, scenes, rays, origin, nccl=cards >= 2)
+    if cards < 2:
+        emit("nccl_sharded_step", cards=cards, ran=False,
+             note="phase 25 (the sharded step with one rank per card over "
+                  "NCCL) and phase 26 (every card's Segmenter) need two or "
+                  "more cards: run python3 chip_smoke.py --nccl on a machine "
+                  "with 2 or 4")
     sharded_times.update(proto_phase(torch, card, dev, scenes, rays, origin))
+    if cards >= 2:
+        every_card_phase(torch, card, scenes, rays, origin,
+                         expect={32: counts32, 64: counts64})
 
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
@@ -1004,7 +1066,10 @@ def main():
              voxel_grid=voxel_b2,
              launches_sharded_per_rank={
                  n: {s: [c[0] for c in per] for s, per in v.items()}
-                 for n, v in sharded_launches.items()}),
+                 for n, v in sharded_launches.items()},
+             launches_nccl_per_rank={
+                 n: {s: [c[0] for c in per] for s, per in v.items()}
+                 for n, v in nccl_launches.items()}),
         dict(name="flood_packed", route="cuda",
              source="pcseg_tpu_torch/csrc/flood_packed.cu",
              replaces="pcseg_tpu/models/planar_batched.py:133",
@@ -1013,15 +1078,16 @@ def main():
              bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
              launches_sharded_per_rank={
                  n: {s: [c[1] for c in per] for s, per in v.items()}
-                 for n, v in sharded_launches.items()}),
+                 for n, v in sharded_launches.items()},
+             launches_nccl_per_rank={
+                 n: {s: [c[1] for c in per] for s, per in v.items()}
+                 for n, v in nccl_launches.items()}),
     ]
     emit("times_options", card=card, **opt_times)
     emit("times_unorganized", card=card, **unorg_times, **seq_times)
     emit("times_sharded", card=card, **sharded_times)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    result_line(torch)
 
 
 def temporal_config(config, k):
@@ -1739,36 +1805,91 @@ def sharded_golden_points():
             for name, (fn, seed) in SHARDED_GOLDEN_SCENES.items()}
 
 
-def sharded_rank(rank, world, tmp):
-    """One rank of phase 23 (``chip_smoke.py --sharded-rank R N DIR``): a
-    gloo group over a FileStore in DIR on the card's CUDA tensors; on each
-    VGA scene the step with the kernels (counted, timed), its plain run and
+def gather_probe(torch, comm):
+    """True when every rank's f64, int64, int32 and bool probe (NaN
+    payloads, -0.0, subnormals, infinities, the int64 extremes) comes back
+    byte for byte through ``comm.all_gather``."""
+    def probe(r):
+        raw = np.random.default_rng(100 + r).integers(
+            -2 ** 63, 2 ** 63 - 1, size=64, dtype=np.int64)
+        f64 = raw.view(np.float64).copy()
+        f64[:6] = [0.0, -0.0, 5e-324, np.inf, -np.inf, np.nan]
+        f64[5:6] = np.array([0x7FF8_0000_DEAD_BEEF + r], np.uint64) \
+            .view(np.float64)
+        i64 = raw.copy()
+        i64[:2] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max]
+        return dict(f64=f64, i64=i64, i32=raw.view(np.int32),
+                    bool=(raw & 1) == 1)
+
+    ok = True
+    for key in ("f64", "i64", "i32", "bool"):
+        got = comm.all_gather(torch.from_numpy(probe(comm.rank)[key])
+                              .to(comm.device)).cpu().numpy()
+        want = np.stack([probe(r)[key] for r in range(comm.size)])
+        ok &= got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    return bool(ok)
+
+
+def sharded_rank(backend, tmp):
+    """One rank of phase 23 (``gloo``: every rank on ``cuda:0``, meeting
+    over a FileStore in DIR) or phase 25 (``nccl``: one rank per card,
+    ``distributed.initialize("nccl")``): ``chip_smoke.py --sharded-rank
+    BACKEND DIR`` with torchrun's environment (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT). Prints its transport and
+    current card; checks its gathers' bytes; on each VGA scene runs the
+    step with the kernels (counted, timed by CUDA events on its card, with
+    the host seconds spent inside ``Comm.all_gather``), its plain run and
     a timed rerun, then the golden's scenes; writes its column blocks and
     the replicated tables to DIR."""
     import torch
     from pcseg_tpu_torch.kernels import ccl_gated, flood_packed
-    from pcseg_tpu_torch.parallel import distributed, sharded
+    from pcseg_tpu_torch.parallel import distributed, halo, sharded
 
-    rank, world = int(rank), int(world)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    store = torch.distributed.FileStore(os.path.join(tmp, f"store{world}"),
-                                        world)
-    distributed.initialize("gloo", store=store, world_size=world, rank=rank,
-                           timeout_s=SHARDED_GROUP_TIMEOUT_S)
-    comm = distributed.make_group(device="cuda:0")
+    if backend == "nccl":
+        distributed.initialize("nccl", timeout_s=SHARDED_GROUP_TIMEOUT_S)
+        comm = distributed.make_group()
+    else:
+        store = torch.distributed.FileStore(
+            os.path.join(tmp, f"store{world}"), world)
+        distributed.initialize("gloo", store=store, world_size=world,
+                               rank=rank, timeout_s=SHARDED_GROUP_TIMEOUT_S)
+        comm = distributed.make_group(device="cuda:0")
+    print(json.dumps(dict(rank=rank, world=world, transport=comm.transport,
+                          device=str(comm.device),
+                          current_device=torch.cuda.current_device())),
+          flush=True)
     step = sharded.build_sharded_segment_step(comm)
     step_plain = sharded.build_sharded_segment_step(comm, impl="plain")
-    out = {"transport": np.array(comm.transport)}
+    out = {"transport": np.array(comm.transport),
+           "current_device": np.array(torch.cuda.current_device()),
+           "gather_exact": np.array(gather_probe(torch, comm))}
+
+    # host seconds inside Comm.all_gather (psum, pmin, pmax and the halos
+    # go through it)
+    spent = [0.0]
+    real_gather = halo.Comm.all_gather
+
+    def timed_gather(self, x):
+        t0 = time.perf_counter()
+        try:
+            return real_gather(self, x)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    halo.Comm.all_gather = timed_gather
 
     def run(s, pts, origin):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        spent[0] = 0.0
         e0.record()
         res = s(distributed.local_columns(pts, comm), origin)
         e1.record()
         torch.cuda.synchronize()
-        return res, e0.elapsed_time(e1)
+        return res, e0.elapsed_time(e1), spent[0]
 
     def keep(key, res):
         out[key + "_labels"] = res.labels.cpu().numpy()
@@ -1785,28 +1906,195 @@ def sharded_rank(rank, world, tmp):
             for m in (ccl_gated, flood_packed):
                 m.launches = 0
             g0 = comm.gathers
-            res, ms = run(step, pts, origin)
+            res, ms, gs = run(step, pts, origin)
             out[name + "_launches"] = np.array([ccl_gated.launches,
                                                 flood_packed.launches])
             out[name + "_gathers"] = np.array(comm.gathers - g0)
             keep(name, res)
             keep(name + "_plain", run(step_plain, pts, origin)[0])
-            again, ms2 = run(step, pts, origin)
+            again, ms2, gs2 = run(step, pts, origin)
             keep(name + "_rerun", again)
             out[name + "_ms"] = np.array([ms, ms2])
+            out[name + "_gather_s"] = np.array([gs, gs2])
         for name in SHARDED_GOLDEN_SCENES:
             keep("golden_" + name, run(step, data["golden_" + name],
                                        data["golden_" + name + "_origin"])[0])
-    np.savez(os.path.join(tmp, f"n{world}_rank{rank}.npz"), **out)
+    np.savez(os.path.join(tmp, f"{backend}{world}_rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
 
 
-def sharded_phase(torch, card, dev, scenes, rays, origin):
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(backend, n, tmp):
+    """Start ``n`` ranks of ``--sharded-rank BACKEND DIR`` with the
+    environment torchrun gives its processes, wait for them (each within
+    SHARDED_RANK_TIMEOUT_S, then killed), relay each rank's line and fail
+    with the log of a rank that failed; returns the merged results:
+    column blocks (``*_labels``) joined, per-rank values (launches, times,
+    card) as lists, every other value replicated (the same bytes on every
+    rank)."""
+    env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+         backend, tmp], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARDED_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], file=sys.stderr, flush=True)
+            fail(f"{backend} rank {r} of {n} exited {p.returncode}")
+        for line in log.splitlines():
+            if line.startswith('{"rank"'):
+                print(line, flush=True)
+    ranks = [dict(np.load(os.path.join(tmp, f"{backend}{n}_rank{r}.npz")))
+             for r in range(n)]
+    merged = {}
+    for key in ranks[0]:
+        vals = [d[key] for d in ranks]
+        if key.endswith(("_launches", "_ms", "_gather_s", "current_device",
+                         "gather_exact")):
+            merged[key] = [v.tolist() for v in vals]
+        elif key.endswith("_labels"):
+            merged[key] = np.concatenate(vals, axis=1)
+        else:
+            if any(v.tobytes() != vals[0].tobytes() for v in vals[1:]):
+                fail(f"{backend}: sharded {key} differs between the ranks "
+                     f"({n})")
+            merged[key] = vals[0]
+    return merged
+
+
+def check_group(phase, backend, n, m, pts, ref, gold, gpts, card, times,
+                gloo=None):
+    """The rules of phase 23 on one group's merged results ``m``: labels
+    equal to the ranks' plain runs and reruns, region and cluster counts
+    equal to the 1-rank step, labels >= 99% and planes within JAX's bound
+    against it, one B2 launch and some B3 launches per rank per step, the
+    128x160 golden exact; with ``gloo`` (phase 25) also labels, counts and
+    planes byte-equal to the gloo group's of the same rank count. Returns
+    {scene: per-rank [B2, B3] launches}."""
+    def same(a, b):
+        return np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+    tables = ("_labels", "_num_regions", "_num_clusters", "_planes")
+    pre = "" if backend == "gloo" else backend + "_"
+    launches = {}
+    for name in pts:
+        lab = m[name + "_labels"]
+        num = int(m[name + "_num_regions"])
+        planes = m[name + "_planes"]
+        want = ref[name]
+        agree = float((lab == want["labels"]).mean())
+        dots = [abs(float(planes[i, :3] @ want["planes"][i, :3]))
+                for i in range(min(num, want["num_regions"]))]
+        per_rank = m[name + "_launches"]
+        launches[name] = per_rank
+        same_plain = (np.array_equal(lab, m[name + "_plain_labels"])
+                      and num == int(m[name + "_plain_num_regions"])
+                      and same(m[name + "_num_clusters"],
+                               m[name + "_plain_num_clusters"]))
+        plain_err = float(np.abs(planes - m[name + "_plain_planes"]).max())
+        rerun = all(same(m[name + k], m[name + "_rerun" + k])
+                    for k in tables)
+        ms = m[name + "_ms"]
+        times[f"{pre}n{n}_{name}_ms"] = statistics.median(ms[0])
+        line = dict(
+            ranks=n, scene=name, shape=[H, W], card=card,
+            transport=str(m["transport"]),
+            current_device_per_rank=m["current_device"],
+            gathers_exact=m["gather_exact"], num_regions=num,
+            one_rank_num_regions=want["num_regions"],
+            num_clusters=int(m[name + "_num_clusters"]),
+            one_rank_num_clusters=want["num_clusters"],
+            launches_ccl_gated_flood_packed_per_rank=per_rank,
+            collectives_per_step=int(m[name + "_gathers"]),
+            ms_per_step_per_rank=ms,
+            gather_host_s_per_step_per_rank=m[name + "_gather_s"],
+            one_rank_ms=times[f"n1_{name}_ms"],
+            labels_counts_equal_plain=same_plain,
+            planes_max_abs_err_plain=plain_err, atol=PLANE_ATOL,
+            bit_identical_rerun=rerun, agreement_vs_one_rank=agree,
+            min_plane_dot_vs_one_rank=min(dots) if dots else None,
+            bound=[SHARDED_AGREE, SHARDED_DOT])
+        if gloo is not None:
+            line["bytes_equal_gloo"] = all(same(m[name + k], gloo[name + k])
+                                           for k in tables)
+        emit(phase, **line)
+        if not all(m["gather_exact"]):
+            fail(f"{phase}: a gather on {n} ranks changed bytes")
+        if backend == "nccl" and (
+                str(m["transport"]) != "nccl"
+                or m["current_device"] != list(range(n))):
+            fail(f"{phase}: ranks are not one per card over NCCL: "
+                 f"{m['transport']} on {m['current_device']}")
+        if not (same_plain and plain_err <= PLANE_ATOL and rerun):
+            fail(f"{phase} on {n} ranks ({name}) disagrees with its plain "
+                 "run or its rerun")
+        if num != want["num_regions"] or agree < SHARDED_AGREE \
+                or any(d <= SHARDED_DOT for d in dots) \
+                or int(m[name + "_num_clusters"]) != want["num_clusters"]:
+            fail(f"{phase} on {n} ranks ({name}) is outside JAX's bound "
+                 "against the 1-rank step")
+        if any(c[0] != 1 or c[1] <= 0 for c in per_rank):
+            fail(f"{phase} on {n} ranks ({name}) did not launch B2 once and "
+                 f"B3 on every rank: {per_rank}")
+        if gloo is not None and not line["bytes_equal_gloo"]:
+            fail(f"{phase} on {n} ranks ({name}) differs from the gloo "
+                 "group's bytes")
+    bad = []
+    for name, (p, _) in gpts.items():
+        gpre = f"n{n}_{name}__"
+        key = f"golden_{name}"
+        lab = m[key + "_labels"]
+        num = int(gold[gpre + "num_regions"])
+        planes = m[key + "_planes"]
+        worst = max([float(np.abs(planes[r] - gold[gpre + "planes"][r])
+                           .max()) / plane_tolerance(
+            p[gold[gpre + "labels"] == r]) for r in range(num)] or [0])
+        ok = (np.array_equal(lab, gold[gpre + "labels"])
+              and int(m[key + "_num_regions"]) == num
+              and int(m[key + "_num_clusters"])
+              == int(gold[gpre + "num_clusters"]) and worst <= 1.0)
+        line = dict(ranks=n, scene=name, shape=list(SHARDED_GOLDEN_SHAPE),
+                    exact=ok, labels_differing=int(
+                        (lab != gold[gpre + "labels"]).sum()),
+                    planes_worst_err_over_tolerance=worst)
+        if gloo is not None:
+            line["bytes_equal_gloo"] = all(same(m[key + k], gloo[key + k])
+                                           for k in tables)
+            ok &= line["bytes_equal_gloo"]
+        emit(phase + "_golden", **line)
+        bad += [] if ok else [name]
+    if bad:
+        fail(f"{phase} on {n} ranks differs from the JAX golden (or the gloo "
+             f"group) on {bad}")
+    return launches
+
+
+def sharded_phase(torch, card, dev, scenes, rays, origin, nccl):
     """Phase 23: ``build_sharded_segment_step`` on the VGA room and
     cluttered frames over 2 and then 4 ranks, processes sharing the card
     over gloo (NCCL refuses two ranks on one device), against the 1-rank
-    step on the card; the 128x160 golden. Returns (times, {rank count:
-    per-rank [B2, B3] launches per scene})."""
+    step on the card; the 128x160 golden. With ``nccl``, phase 25 right
+    after it: the same over NCCL with one rank per card (2 ranks, and 4
+    where there are 4 cards), also byte-equal to the gloo group of the
+    same rank count. Returns (times, {rank count: per-rank [B2, B3]
+    launches per scene} for gloo, the same for NCCL)."""
     import tempfile
     from pcseg_tpu_torch.ops import unproject
     from pcseg_tpu_torch.parallel import halo, sharded
@@ -1832,124 +2120,104 @@ def sharded_phase(torch, card, dev, scenes, rays, origin):
     gold = np.load(os.path.join(ROOT, "pcseg_tpu_torch", "testdata",
                                 "jax_sharded_128x160.npz"))
     gpts = sharded_golden_points()
-    launches = {}
+    launches, nccl_launches = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         inputs = dict(origin=origin, scenes=np.array(list(pts)), **pts)
         for name, (p, o) in gpts.items():
             inputs["golden_" + name] = p
             inputs["golden_" + name + "_origin"] = o
         np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+        gloo = {}
         for n in SHARDED_RANKS:
-            procs = [subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--sharded-rank",
-                 str(r), str(n), tmp], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True) for r in range(n)]
-            logs = []
-            try:
-                for p in procs:
-                    logs.append(p.communicate(
-                        timeout=SHARDED_RANK_TIMEOUT_S)[0])
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            for r, (p, log) in enumerate(zip(procs, logs)):
-                if p.returncode != 0:
-                    print(log[-6000:], file=sys.stderr, flush=True)
-                    fail(f"sharded rank {r} of {n} exited {p.returncode}")
-            ranks = [np.load(os.path.join(tmp, f"n{n}_rank{r}.npz"))
-                     for r in range(n)]
+            gloo[n] = run_ranks("gloo", n, tmp)
+            launches[n] = check_group("sharded_step", "gloo", n, gloo[n],
+                                      pts, ref, gold, gpts, card, times)
+        times["phase_23_seconds"] = time.perf_counter() - t_start
+        if nccl:
+            t_start = time.perf_counter()
+            for n in SHARDED_RANKS:
+                if n > torch.cuda.device_count():
+                    continue
+                m = run_ranks("nccl", n, tmp)
+                nccl_launches[n] = check_group(
+                    "nccl_sharded_step", "nccl", n, m, pts, ref, gold, gpts,
+                    card, times, gloo=gloo[n])
+            times["phase_25_seconds"] = time.perf_counter() - t_start
+    return times, launches, nccl_launches
 
-            def grid(key):
-                return np.concatenate([d[key] for d in ranks], axis=1)
 
-            def repl(key):
-                v = ranks[0][key]
-                if any(d[key].tobytes() != v.tobytes() for d in ranks[1:]):
-                    fail(f"sharded {key} differs between the ranks ({n})")
-                return v
+def every_card_phase(torch, card, scenes, rays, origin, expect=None):
+    """Phase 26: in this process, card 0 current and no set_device,
+    ``Segmenter(device=f"cuda:{k}").device_forward_stream`` on every card
+    k at 32 and 64 slots on the VGA batches of phase 3 (B = 8): labels,
+    counts and planes byte-equal to card 0's, with card 0's launch counts
+    (and ``expect[slots]``, phases 3 and 9's, where given)."""
+    from pcseg_tpu_torch.models import config, pipeline
 
-            launches[n] = {}
-            for name in pts:
-                lab = grid(name + "_labels")
-                num = int(repl(name + "_num_regions"))
-                planes = repl(name + "_planes")
-                want = ref[name]
-                agree = float((lab == want["labels"]).mean())
-                dots = [abs(float(planes[i, :3] @ want["planes"][i, :3]))
-                        for i in range(min(num, want["num_regions"]))]
-                per_rank = [d[name + "_launches"].tolist() for d in ranks]
-                launches[n][name] = per_rank
-                same_plain = (np.array_equal(lab, grid(name + "_plain_labels"))
-                              and num == int(repl(name + "_plain_num_regions"))
-                              and np.array_equal(
-                                  repl(name + "_num_clusters"),
-                                  repl(name + "_plain_num_clusters")))
-                plain_err = float(np.abs(
-                    planes - repl(name + "_plain_planes")).max())
-                rerun = all(np.array_equal(grid(name + k), grid(
-                    name + "_rerun" + k)) for k in ("_labels",)) and all(
-                    repl(name + k).tobytes() == repl(
-                        name + "_rerun" + k).tobytes()
-                    for k in ("_num_regions", "_num_clusters", "_planes"))
-                ms = [d[name + "_ms"].tolist() for d in ranks]
-                times[f"n{n}_{name}_ms"] = statistics.median(ms[0])
-                emit("sharded_step", ranks=n, scene=name, shape=[H, W],
-                     card=card, transport=str(repl("transport")),
-                     num_regions=num, one_rank_num_regions=want[
-                         "num_regions"],
-                     num_clusters=int(repl(name + "_num_clusters")),
-                     one_rank_num_clusters=want["num_clusters"],
-                     launches_ccl_gated_flood_packed_per_rank=per_rank,
-                     collectives_per_step=int(repl(name + "_gathers")),
-                     ms_per_step_per_rank=ms,
-                     one_rank_ms=times[f"n1_{name}_ms"],
-                     labels_counts_equal_plain=same_plain,
-                     planes_max_abs_err_plain=plain_err, atol=PLANE_ATOL,
-                     bit_identical_rerun=rerun, agreement_vs_one_rank=agree,
-                     min_plane_dot_vs_one_rank=min(dots) if dots else None,
-                     bound=[SHARDED_AGREE, SHARDED_DOT])
-                if not (same_plain and plain_err <= PLANE_ATOL and rerun):
-                    fail(f"sharded step on {n} ranks ({name}) disagrees with "
-                         "its plain run or its rerun")
-                if num != want["num_regions"] or agree < SHARDED_AGREE \
-                        or any(d <= SHARDED_DOT for d in dots) \
-                        or int(repl(name + "_num_clusters")) \
-                        != want["num_clusters"]:
-                    fail(f"sharded step on {n} ranks ({name}) is outside "
-                         "JAX's bound against the 1-rank step")
-                if any(c[0] <= 0 or c[1] <= 0 for c in per_rank):
-                    fail(f"sharded step on {n} ranks ({name}) did not "
-                         f"launch B2 and B3 on every rank: {per_rank}")
-            bad = []
-            for name, (p, _) in gpts.items():
-                pre = f"n{n}_{name}__"
-                lab = grid(f"golden_{name}_labels")
-                num = int(gold[pre + "num_regions"])
-                planes = repl(f"golden_{name}_planes")
-                worst = max([float(np.abs(planes[r] - gold[pre + "planes"][r])
-                                   .max()) / plane_tolerance(
-                    p[gold[pre + "labels"] == r]) for r in range(num)] or [0])
-                ok = (np.array_equal(lab, gold[pre + "labels"])
-                      and int(repl(f"golden_{name}_num_regions")) == num
-                      and int(repl(f"golden_{name}_num_clusters"))
-                      == int(gold[pre + "num_clusters"]) and worst <= 1.0)
-                emit("sharded_golden", ranks=n, scene=name,
-                     shape=list(SHARDED_GOLDEN_SHAPE), exact=ok,
-                     labels_differing=int((lab != gold[pre + "labels"])
-                                          .sum()),
-                     planes_worst_err_over_tolerance=worst)
-                bad += [] if ok else [name]
-            if bad:
-                fail(f"sharded step on {n} ranks differs from the JAX "
-                     f"golden on {bad}")
-    times["phase_23_seconds"] = time.perf_counter() - t_start
-    return times, launches
+    kernels_mod, reset_counts, read_counts = kernel_counters()
+    cfgs = {32: config.SegmenterConfig(), 64: config.SegmenterConfig(
+        planar=config.PlanarRegionConfig(max_regions=64))}
+    batches = {name: make_batch(u16, i)
+               for i, (name, u16) in enumerate(scenes.items())}
+    want = {}
+    for k in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", k)
+        rays_d = torch.from_numpy(rays).to(dev)
+        origin_d = torch.from_numpy(origin).to(dev)
+        on_card = {name: torch.from_numpy(b).to(dev)
+                   for name, b in batches.items()}
+        for slots, cfg in cfgs.items():
+            seg = pipeline.Segmenter(cfg, device=dev)
+            reset_counts()
+            outs = {name: [t.cpu().numpy() for t in seg.device_forward_stream(
+                b, rays_d, origin_d)] for name, b in on_card.items()}
+            counts = read_counts()
+            want.setdefault(slots, (outs, counts))
+            w_outs, w_counts = want[slots]
+            equal = all(a.tobytes() == b.tobytes() for name in outs
+                        for a, b in zip(outs[name], w_outs[name]))
+            current = torch.cuda.current_device()
+            emit("every_card", card=card, card_index=k, slots=slots,
+                 launches=counts, card0_launches=w_counts,
+                 expected_launches=expect and expect[slots],
+                 bytes_equal_card0=equal, current_device=current,
+                 num_planar={n: o[1].tolist() for n, o in outs.items()})
+            if not equal or counts != w_counts or current != 0:
+                fail(f"every_card: cuda:{k} at {slots} slots differs from "
+                     "card 0 (outputs, launch counts or current card)")
+            if expect and counts != expect[slots]:
+                fail(f"every_card: {slots} slots launched {counts}, phase "
+                     f"3/9 launched {expect[slots]}")
+            used = ("epoch_word" if slots == 32 else "flood_packed",
+                    "ccl_gated")
+            if any(counts[u] <= 0 for u in used):
+                fail(f"every_card: {used} did not launch on cuda:{k}")
+
+
+def nccl_main():
+    """``chip_smoke.py --nccl``: the build, the 1-rank step on card 0,
+    phase 23's gloo groups, phase 25 and phase 26; needs two or more
+    cards."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if torch.cuda.device_count() < 2:
+        fail(f"--nccl needs two or more cards, found "
+             f"{torch.cuda.device_count()}")
+    card = device_and_build(torch)
+    rays, origin, scenes = vga_scenes()
+    times, launches, nccl_launches = sharded_phase(
+        torch, card, torch.device("cuda"), scenes, rays, origin, nccl=True)
+    every_card_phase(torch, card, scenes, rays, origin)
+    emit("times_sharded", card=card, **times,
+         launches_per_rank_gloo=launches, launches_per_rank_nccl=nccl_launches)
+    result_line(torch)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
-        sharded_rank(*sys.argv[2:5])
+        sharded_rank(*sys.argv[2:4])
+    elif sys.argv[1:] == ["--nccl"]:
+        nccl_main()
     else:
         main()

@@ -83,12 +83,10 @@ def ccl_gated(gate: torch.Tensor, labels0: torch.Tensor, offsets, rounds: int,
     tmp = torch.empty_like(labels0)
     flags = torch.empty(3 * b, dtype=torch.int32, device=dev)
     offs = (ctypes.c_int * (2 * n))(*[v for o in offsets for v in o])
-    rc = _lib().ccl_gated_launch(
-        common.ptr(gate), common.ptr(labels0), common.ptr(out),
-        common.ptr(tmp), common.ptr(flags), common.ptr(rounds_out),
-        ctypes.cast(offs, ctypes.c_void_p), n, o_row, o_col, b, h, w,
-        int(rounds), common.stream_ptr())
-    if rc != 0:
-        raise RuntimeError(f"ccl_gated_launch failed with CUDA error {rc}")
+    common.launch(
+        _lib().ccl_gated_launch, dev, common.ptr(gate), common.ptr(labels0),
+        common.ptr(out), common.ptr(tmp), common.ptr(flags),
+        common.ptr(rounds_out), ctypes.cast(offs, ctypes.c_void_p), n, o_row,
+        o_col, b, h, w, int(rounds))
     launches += 1
     return out

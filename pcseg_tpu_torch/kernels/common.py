@@ -173,5 +173,19 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def stream_ptr() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of ``device`` (not of the thread's current card)."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the C launcher ``fn`` with ``args`` and the current stream of
+    ``device``, the card of the kernel's tensors, with that card current:
+    the launcher plans its cooperative grid on ``cudaGetDevice()``'s card
+    and launches on the stream it is given, so both must be the tensors'
+    card whichever card the calling thread has current. Raises on a CUDA
+    error."""
+    with torch.cuda.device(device):
+        rc = fn(*args, stream_ptr(device))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {rc}")

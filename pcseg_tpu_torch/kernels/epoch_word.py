@@ -167,13 +167,11 @@ def epoch_word(px, py, pz, rank, elig, word, srank, alive, plane, anchor_r,
     alin = torch.empty((b, k_cap), **i32)
     mom = torch.empty((b, k_cap, 10), dtype=torch.float32, device=dev)
     p = common.ptr
-    rc = lib.epoch_word_launch(
+    common.launch(
+        lib.epoch_word_launch, dev,
         p(px), p(py), p(pz), p(rank), p(elig), p(word), p(srank), p(alive),
         p(plane), p(anchor_r), p(anchor_c), p(radius), p(out), p(gate),
         p(flags), p(rounds_out), p(part_mom), p(part_cnt), p(part_key), p(cnt),
-        p(mrank), p(alin), p(mom), b, h, w, k_cap, float(tau), int(rounds),
-        common.stream_ptr())
-    if rc != 0:
-        raise RuntimeError(f"epoch_word_launch failed with CUDA error {rc}")
+        p(mrank), p(alin), p(mom), b, h, w, k_cap, float(tau), int(rounds))
     launches += 1
     return out, cnt, mrank, alin, mom

@@ -101,11 +101,9 @@ def flood_packed(gate_words: torch.Tensor, reach0_words: torch.Tensor,
         return out
     out = torch.empty_like(reach0_words)
     flags = torch.empty(3 * n, dtype=torch.int32, device=dev)
-    rc = _lib().flood_packed_launch(
-        common.ptr(gate_words), common.ptr(reach0_words), common.ptr(out),
-        common.ptr(flags), common.ptr(rounds_out), n, h, w, int(rounds),
-        common.stream_ptr())
-    if rc != 0:
-        raise RuntimeError(f"flood_packed_launch failed with CUDA error {rc}")
+    common.launch(
+        _lib().flood_packed_launch, dev, common.ptr(gate_words),
+        common.ptr(reach0_words), common.ptr(out), common.ptr(flags),
+        common.ptr(rounds_out), n, h, w, int(rounds))
     launches += 1
     return out

@@ -8,16 +8,20 @@ columns. A :class:`Comm` takes the place of JAX's mesh axis name.
 
 Every collective is an ``all_gather``: gloo has no point-to-point
 operations on CUDA tensors, and a float sum taken as gather-then-add in
-rank order gives every rank the same bytes on any backend, so the
-replicated host loops of the sharded step (parallel/sharded.py) take the
-same branches on every rank. Halos are built from the gathered edge
-strips.
+rank order gives every rank the same bytes on any backend (NCCL's own
+reductions add in an order of their own), so the replicated host loops of
+the sharded step (parallel/sharded.py) take the same branches on every
+rank. Halos are built from the gathered edge strips.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+# the gather into one buffer; newer releases renamed it
+_gather_into = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
 
 
 class Comm:
@@ -26,12 +30,13 @@ class Comm:
     ``group`` is a ``torch.distributed`` group (None: the default group
     when one is initialised, else a single rank of its own). ``device`` is
     where this rank's tensors live: the card unless the caller passes
-    ``"cpu"``. The transport of every collective is
-    fixed here, from the backend and the device: ``"nccl"`` and gloo on
-    CPU tensors gather in place; gloo with CUDA tensors (ranks sharing one
+    ``"cpu"``. The transport of every collective is fixed here, from the
+    backend and the device: ``"nccl"`` (one rank per card) and gloo on CPU
+    tensors gather in place; gloo with CUDA tensors (ranks sharing one
     card, which NCCL refuses) stages each gather through host memory,
     ``"gloo via host"``. :attr:`transport` names it; :attr:`gathers`
-    counts the collectives made."""
+    counts the collectives made. Every transport gathers into one
+    preallocated buffer (``all_gather_into_tensor``)."""
 
     def __init__(self, group=None, device="cuda"):
         self.device = torch.device(device)
@@ -59,9 +64,11 @@ class Comm:
         if self.staged:
             y = y.cpu()
         y = y.contiguous()
-        parts = [torch.empty_like(y) for _ in range(self.size)]
-        dist.all_gather(parts, y, group=self.group)
-        out = torch.stack(parts).to(self.device)
+        out = torch.empty((self.size, *y.shape), dtype=y.dtype,
+                          device=y.device)
+        # flat: gloo takes the rank blocks laid end to end along dim 0
+        _gather_into(out.view(-1), y.view(-1), group=self.group)
+        out = out.to(self.device)
         return out.to(torch.bool) if dtype == torch.bool else out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ inputs and writes its results; ``run_ranks`` returns them merged: keys
 ``"L:<name>"`` hold column blocks (concatenated along axis 1, or the axis
 after the name's ``@``), keys ``"R:<name>"`` replicated values (every rank
 must hold the same bytes). The ``env`` suite joins the group from
-torchrun's environment variables instead of the store.
+torchrun's environment variables instead of the store; the ``gather``
+suite gathers each rank's slice of the inputs' ``cases`` through
+``Comm.all_gather`` and through the list form of ``all_gather``.
 
 Child usage: python tests/torch_sharded_worker.py <rank> <world> <store>
 <inputs.npz> <out prefix> <suite>
@@ -142,6 +144,19 @@ def _suite(name, comm, data, res):
             torch.as_tensor(data["sq_seed_valid"]),
             PlanarRegionConfig(max_regions=16), h, w, comm,
             max_attempts=32))
+    elif name == "gather":
+        # Comm.all_gather (one buffer) against the list form it replaced
+        for key in data["cases"].tolist():
+            x = torch.as_tensor(data[key][comm.rank])
+            y = (x.to(torch.uint8) if x.dtype == torch.bool else x) \
+                .contiguous()
+            parts = [torch.empty_like(y) for _ in range(comm.size)]
+            torch.distributed.all_gather(parts, y)
+            old = torch.stack(parts)
+            repl("new_" + key, comm.all_gather(x))
+            repl("old_" + key, old.to(x.dtype))
+            if x.dtype != torch.bool:
+                repl("psum_" + key, comm.psum(x))
     elif name in ("step", "golden", "env"):
         for scene in data["scenes"].tolist():
             kw = {} if name == "golden" else dict(
