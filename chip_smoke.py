@@ -2,7 +2,8 @@
 """Drive the PyTorch port's paths on NVIDIA GPUs and check them.
 
     python3 chip_smoke.py          # every phase; 25 and 26 on 2+ cards
-    python3 chip_smoke.py --nccl   # phases 1, 2, 23, 25 and 26; 2+ cards
+    python3 chip_smoke.py --nccl   # phases 1, 2, 23, 25, 26 and the dry
+                                   # run over 2 and 4 cards; 2+ cards
 
 Phases (each prints one JSON line; any failure exits nonzero without the
 final result line):
@@ -144,7 +145,20 @@ final result line):
      ``set_device``, ``Segmenter(device=f"cuda:{k}").device_forward_stream``
      on every card k at 32 and 64 slots on phase 3's VGA batches: labels,
      counts and planes byte-equal to card 0's, with phases 3 and 9's
-     launch counts (each wrapper launches on its tensors' card).
+     launch counts (each wrapper launches on its tensors' card);
+ 27. the JAX package's last public surface: ``flood_fill_static`` (B3's
+     public entry) on the first flood's gates of a plain 64-slot stream
+     run, counted (one B3 launch, nothing else) and equal to its plain
+     version; ``connected_components_mask`` on the cluttered VGA frame's
+     unlabeled mask, 4- and 8-neighbourhood, rounds free and capped at 1
+     and 3, equal to the CPU; ``classify_planes_batched`` on that frame's
+     records (SURFACE_CLASSIFY) equal to the CPU; ``graft_entry.entry()``'s QVGA
+     forward, counted (B1 and B2 launch) and equal to its plain run on the
+     card; ``utils/profiling.trace_to`` around one stream call with
+     ``stage`` on four stages, whose names must be in the Chrome trace
+     (the count of CUDA kernel records is printed, not gated);
+     ``graft_entry.dryrun_multichip(1)``, its ok line; ``--nccl`` runs the
+     dry run over 2 and 4 cards after phase 26.
 
 On one card the run prints that phases 25 and 26 need two or more cards,
 with the ``--nccl`` command, and goes on.
@@ -1038,6 +1052,10 @@ def main():
     if cards >= 2:
         every_card_phase(torch, card, scenes, rays, origin,
                          expect={32: counts32, 64: counts64})
+    surface_launches, surface_times = surface_phase(
+        torch, card, dev, scenes, rays, origin, stream,
+        (batches["cluttered"], rays_d, origin_d), segs, reset_counts,
+        read_counts)
 
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
@@ -1055,7 +1073,9 @@ def main():
              replaces="pcseg_tpu/models/planar_batched.py:291",
              launches=counts32["epoch_word"], max_abs_err=mom_err,
              ms=e_ms, ms_per_call_of_10=e_10, plain_ms=e_plain,
-             bound_ms=e_bound[0], bound_by=e_bound[1], library_ms=None),
+             bound_ms=e_bound[0], bound_by=e_bound[1], library_ms=None,
+             launches_entry_forward=surface_launches["entry_forward"][
+                 "epoch_word"]),
         dict(name="ccl_gated", route="cuda",
              source="pcseg_tpu_torch/csrc/ccl_gated.cu",
              replaces="pcseg_tpu/ops/connectivity.py:296",
@@ -1063,6 +1083,8 @@ def main():
              ms=c_ms, ms_per_call_of_10=c_10, plain_ms=c_plain,
              bound_ms=c_bound[0], bound_by=c_bound[1], library_ms=None,
              rounds_run=c_rounds, launches_unorganized_euclid=unorg_b2,
+             launches_entry_forward=surface_launches["entry_forward"][
+                 "ccl_gated"],
              voxel_grid=voxel_b2,
              launches_sharded_per_rank={
                  n: {s: [c[0] for c in per] for s, per in v.items()}
@@ -1076,6 +1098,8 @@ def main():
              launches=counts64["flood_packed"], max_abs_err=f_err,
              ms=f_ms, ms_per_call_of_10=f_10, plain_ms=f_plain,
              bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
+             launches_flood_fill_static=surface_launches[
+                 "flood_fill_static"]["flood_packed"],
              launches_sharded_per_rank={
                  n: {s: [c[1] for c in per] for s, per in v.items()}
                  for n, v in sharded_launches.items()},
@@ -1086,6 +1110,7 @@ def main():
     emit("times_options", card=card, **opt_times)
     emit("times_unorganized", card=card, **unorg_times, **seq_times)
     emit("times_sharded", card=card, **sharded_times)
+    emit("times_surface", card=card, **surface_times)
     print(json.dumps({"kernels": kernels}), flush=True)
     result_line(torch)
 
@@ -1797,6 +1822,221 @@ def proto_phase(torch, card, dev, scenes, rays, origin):
     return times
 
 
+SURFACE_CLASSIFY = dict(
+    floor_params=dict(max_up_direction_delta_angle_degrees=0.0,
+                      floor_offset=0.0, max_floor_offset_deviation=0.05,
+                      min_area=0.5, max_area=50.0),
+    coffee_table_params=dict(max_up_direction_delta_angle_degrees=10.0,
+                             floor_offset=-0.45,
+                             max_floor_offset_deviation=0.1, min_area=0.1,
+                             max_area=2.0),
+    wall_params=dict(max_horizontal_delta_angle_degrees=10.0,
+                     min_height=0.6))
+SURFACE_STAGES = ("compute_normals_organized", "seeds_from_plane_support",
+                  "grow_planar_regions_batched", "segment_clusters")
+
+
+def surface_phase(torch, card, dev, scenes, rays, origin, stream,
+                  stream_args, segs, reset_counts, read_counts):
+    """Phase 27: the JAX package's last public surface on the card.
+    ``flood_fill_static`` on the first flood's gates of a plain 64-slot
+    stream run (cluttered, B = 8), counted (one B3 launch, nothing else)
+    and equal to its plain version; ``connected_components_mask`` on the
+    cluttered VGA frame's unlabeled mask, both neighbourhoods, rounds free
+    and capped at 1 and 3, equal to the CPU; ``classify_planes_batched``
+    on that frame's records equal to the CPU; ``graft_entry.entry()``'s
+    forward,
+    counted (B1 and B2 launch) and equal to ``Segmenter(impl="plain")``
+    on the card; ``utils/profiling.trace_to`` around one stream call with
+    ``stage`` on its stages (``stream_args``: the cluttered batch, rays
+    and origin), whose names must be in the trace;
+    ``graft_entry.dryrun_multichip(1)`` (:func:`dryrun_phase`). Returns
+    ({call: launches per kernel} of the counted calls, times)."""
+    import tempfile
+    from pcseg_tpu_torch import graft_entry
+    from pcseg_tpu_torch.models import (classify, cluster, config, pipeline,
+                                        planar_batched)
+    from pcseg_tpu_torch.ops import connectivity, nansafe, normals, seeds
+    from pcseg_tpu_torch.ops import unproject
+    from pcseg_tpu_torch.utils import profiling
+
+    t_start = time.perf_counter()
+    seg, _ = segs[32]
+    _, seg64_plain = segs[64]
+    times = {}
+
+    # flood_fill_static (B3) on the 64-slot stream's first flood
+    gate, src, rounds = capture(planar_batched, "flood_fill_static",
+                                lambda: stream(seg64_plain, "cluttered"))
+    planar_batched.flood_fill_static(gate, src, rounds)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    got = planar_batched.flood_fill_static(gate, src, rounds)
+    torch.cuda.synchronize()
+    flood_counts = read_counts()
+    want = planar_batched.flood_fill_static(gate, src, rounds, impl="plain")
+    exact = bool(torch.equal(got, want))
+    times["flood_fill_static_ms"] = cuda_ms(
+        torch, lambda: planar_batched.flood_fill_static(gate, src, rounds))
+    times["flood_fill_static_plain_ms"] = cuda_ms(
+        torch, lambda: planar_batched.flood_fill_static(gate, src, rounds,
+                                                        impl="plain"))
+    emit("surface_flood_fill_static", card=card, shape=list(gate.shape),
+         rounds=rounds, launches=flood_counts, exact=exact,
+         reached=int(got.sum()), sources=int((src & gate).sum()),
+         ms=times["flood_fill_static_ms"],
+         plain_ms=times["flood_fill_static_plain_ms"])
+    if not exact or flood_counts != dict(epoch_word=0, ccl_gated=0,
+                                         flood_packed=1):
+        fail(f"flood_fill_static: exact={exact}, launches {flood_counts} "
+             "(one flood_packed launch and nothing else expected)")
+
+    # connected_components_mask on the cluttered frame's unlabeled mask
+    pts = torch.from_numpy(unproject.unproject_range_np(
+        scenes["cluttered"], rays)).to(dev)
+    _, _, regions, _ = seg.device_forward(pts, origin)
+    mask = (regions.labels == config.UNLABELED) & nansafe.all_finite(pts)
+    ccl = []
+    for nb4 in (True, False):
+        free, free_cpu = (connectivity.connected_components_mask(
+            m, max_iters=100_000, neighborhood4=nb4)
+            for m in (mask, mask.cpu()))
+        capped = {cap: [connectivity.connected_components_mask(
+            m, max_iters=cap, neighborhood4=nb4) for m in (mask, mask.cpu())]
+            for cap in (1, 3)}
+        line = dict(neighborhood4=nb4, cells=int(mask.sum()),
+                    components=int(torch.unique(free[mask]).numel()),
+                    free_equal_cpu=torch.equal(free.cpu(), free_cpu),
+                    capped_equal_cpu={cap: torch.equal(c[0].cpu(), c[1])
+                                      for cap, c in capped.items()},
+                    cap_binds={cap: not torch.equal(free, c[0])
+                               for cap, c in capped.items()},
+                    ms=cuda_ms(torch, lambda: connectivity
+                               .connected_components_mask(
+                                   mask, max_iters=100_000,
+                                   neighborhood4=nb4)))
+        times[f"ccl_mask_nb{4 if nb4 else 8}_ms"] = line["ms"]
+        ccl.append(line)
+        emit("surface_ccl_mask", card=card, shape=list(mask.shape), **line)
+    if not all(c["free_equal_cpu"] and all(c["capped_equal_cpu"].values())
+               for c in ccl):
+        fail("connected_components_mask on the card differs from the CPU")
+
+    # classify_planes_batched on that frame's records
+    cfg = config.config_from_dict(
+        dict(classification=SURFACE_CLASSIFY)).classification
+    up = np.float32([0.0, 0.0, 1.0])
+    floor_point = np.float32([0.0, 0.0, -1.0])
+    recs = seg.segment_frame_stream(scenes["cluttered"], rays,
+                                    origin).planar_regions
+    planes = np.stack([r.plane for r in recs]).astype(np.float32)
+    areas = np.float32([r.area for r in recs])
+    hull = [np.asarray(r.projected_boundary_points, np.float32) @ up
+            for r in recs]
+    heights = np.float32([h.max() - h.min() if len(h) else 0.0
+                          for h in hull])
+    args = [torch.from_numpy(a) for a in (planes, areas, heights, up,
+                                          floor_point)]
+    cls = classify.classify_planes_batched(*[a.to(dev) for a in args], cfg)
+    cls_cpu = classify.classify_planes_batched(*args, cfg)
+    cls_equal = torch.equal(cls.cpu(), cls_cpu)
+    emit("surface_classify", card=card, planes=len(recs),
+         classes=cls.tolist(), equal_cpu=cls_equal)
+    if not cls_equal:
+        fail("classify_planes_batched on the card differs from the CPU")
+
+    # the graft entry's forward
+    forward, fargs = graft_entry.entry(dev)
+    forward(*fargs)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = forward(*fargs)
+    torch.cuda.synchronize()
+    entry_counts = read_counts()
+    forward_plain = pipeline.Segmenter(device=dev, impl="plain") \
+        .device_forward
+    plain = forward_plain(*fargs)
+    same = (torch.equal(out[0], plain[0])
+            and torch.equal(out[2].num_regions, plain[2].num_regions)
+            and torch.equal(out[3].num_regions, plain[3].num_regions))
+    n_planar = int(out[2].num_regions)
+    plane_err = float((out[2].planes[:n_planar]
+                       - plain[2].planes[:n_planar]).abs().max())
+    times["entry_forward_ms"] = cuda_ms(torch, lambda: forward(*fargs))
+    times["entry_forward_plain_ms"] = cuda_ms(
+        torch, lambda: forward_plain(*fargs))
+    emit("surface_entry_forward", card=card, shape=list(fargs[0].shape),
+         launches=entry_counts, labels_counts_equal_plain=same,
+         planes_max_abs_err=plane_err, atol=PLANE_ATOL,
+         num_planar=n_planar, num_clusters=int(out[3].num_regions),
+         ms=times["entry_forward_ms"],
+         plain_ms=times["entry_forward_plain_ms"])
+    if not (same and plane_err <= PLANE_ATOL and n_planar > 0):
+        fail("the entry forward differs from its plain run")
+    if entry_counts["epoch_word"] <= 0 or entry_counts["ccl_gated"] <= 0:
+        fail(f"the entry forward did not launch B1 and B2: {entry_counts}")
+
+    # a profiler trace of one stream call with stage() on its stages
+    mods = dict(compute_normals_organized=normals,
+                seeds_from_plane_support=seeds,
+                grow_planar_regions_batched=planar_batched,
+                segment_clusters=cluster)
+    real = {name: getattr(mods[name], name) for name in SURFACE_STAGES}
+
+    def staged(name):
+        def run(*a, **kw):
+            with profiling.stage(name):
+                return real[name](*a, **kw)
+        return run
+
+    timer = profiling.Timer()
+    for name in SURFACE_STAGES:
+        setattr(mods[name], name, staged(name))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace_to(tmp) as path:
+                outs = []
+                with timer.measure("stream32_cluttered", sync_value=outs):
+                    outs.append(seg.device_forward_stream(*stream_args))
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        for name in SURFACE_STAGES:
+            setattr(mods[name], name, real[name])
+    names = {e.get("name") for e in events}
+    kernel_records = sum(e.get("cat") == "kernel" for e in events)
+    missing = [n for n in SURFACE_STAGES if n not in names]
+    emit("surface_trace", card=card, stages=list(SURFACE_STAGES),
+         missing=missing, events=len(events),
+         cuda_kernel_records=kernel_records, timer=timer.summary())
+    if missing:
+        fail(f"the stage names {missing} are not in the trace")
+
+    times["dryrun_1_seconds"] = dryrun_phase(card, 1)
+    times["phase_27_seconds"] = time.perf_counter() - t_start
+    return dict(flood_fill_static=flood_counts, entry_forward=entry_counts), \
+        times
+
+
+def dryrun_phase(card, n):
+    """``graft_entry.dryrun_multichip(n)``: n ranks, one per card over
+    NCCL, which must print JAX's ok line. Returns its seconds."""
+    import contextlib
+    import io
+    from pcseg_tpu_torch import graft_entry
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(n)
+    seconds = time.perf_counter() - t0
+    line = buf.getvalue().strip()
+    emit("surface_dryrun", card=card, ranks=n, line=line, seconds=seconds)
+    if not line.startswith(f"dryrun_multichip ok: {n} devices"):
+        fail(f"dryrun_multichip({n}) printed {line!r}")
+    return seconds
+
+
 def sharded_golden_points():
     """The 128x160 golden's scenes: {name: ([H, W, 3] points, origin)}."""
     from pcseg_tpu_torch.utils import synthetic
@@ -2196,8 +2436,9 @@ def every_card_phase(torch, card, scenes, rays, origin, expect=None):
 
 def nccl_main():
     """``chip_smoke.py --nccl``: the build, the 1-rank step on card 0,
-    phase 23's gloo groups, phase 25 and phase 26; needs two or more
-    cards."""
+    phase 23's gloo groups, phase 25, phase 26 and the dry run
+    (``graft_entry.dryrun_multichip``) over 2 and, with four cards, 4
+    ranks; needs two or more cards."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2209,6 +2450,9 @@ def nccl_main():
     times, launches, nccl_launches = sharded_phase(
         torch, card, torch.device("cuda"), scenes, rays, origin, nccl=True)
     every_card_phase(torch, card, scenes, rays, origin)
+    for n in (2, 4):
+        if n <= torch.cuda.device_count():
+            times[f"dryrun_{n}_seconds"] = dryrun_phase(card, n)
     emit("times_sharded", card=card, **times,
          launches_per_rank_gloo=launches, launches_per_rank_nccl=nccl_launches)
     result_line(torch)

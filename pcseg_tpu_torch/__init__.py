@@ -16,7 +16,9 @@ Beside the pipeline: clustering of unorganized clouds through voxel grids
 (``models.unorganized``), the sequential planar grower
 (``growth_mode="wavefront"``/``"hybrid"``, ``models.planar``), the plane
 estimator's state (``ops.plane_fit``), registration, polygons and the
-tensor ``PointCloud`` (``utils.cloud``).
+tensor ``PointCloud`` (``utils.cloud``), tracing helpers
+(``utils.profiling``) and the graft entry points (``graft_entry``: the
+QVGA forward and the sharded dry run over N ranks).
 """
 
 from pcseg_tpu_torch.models.config import (  # noqa: F401

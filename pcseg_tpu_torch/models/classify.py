@@ -1,7 +1,8 @@
 """Geometric plane classification: floor / table / wall / unknown.
 
-Host pass over finalized region records (a copy of the host half of
-pcseg_tpu.models.classify); reimplements plane_classification.cc:
+A host pass over finalized region records and a batched pass on tensors
+(``classify_planes_batched``), ports of pcseg_tpu.models.classify;
+reimplements plane_classification.cc:
   * floor / coffee-table: near-horizontal normal (cosine gate), signed
     offset from a known floor point within deviation, area within
     [min, max] (:34-65);
@@ -18,10 +19,12 @@ import math
 from typing import List
 
 import numpy as np
+import torch
 
 from pcseg_tpu_torch.models.config import (
     PlaneClass, PlaneClassificationConfig, ClassifyHorizontalPlaneParams,
     ClassifyWallParams, PLANE_CLASS_NAMES)
+from pcseg_tpu_torch.ops import xla_order
 
 
 @dataclasses.dataclass
@@ -110,3 +113,45 @@ def classify_regions(records, config: PlaneClassificationConfig,
 def plane_class_name(plane_class: PlaneClass) -> str:
     """planar_region.h:270-282."""
     return PLANE_CLASS_NAMES[PlaneClass(plane_class)]
+
+
+def classify_planes_batched(planes, areas, hull_heights, up, floor_point,
+                            config: PlaneClassificationConfig):
+    """Classification of padded region tables on their device (JAX's
+    ``classify_planes_batched``): planes [R, 4], areas [R], hull_heights
+    [R] (the hull's extent along ``up``), up and floor_point [3] -> [R]
+    int32 PlaneClass values, the priority of :func:`classify_regions`.
+
+    All in f32 as JAX's jitted call: the two length-3 dots in XLA:CPU's
+    fused order (ops/xla_order.fma_sum3; an eager JAX call rounds the
+    products first and may land on the other side of an ulp-wide gate),
+    and every bound and cosine cast to f32 as JAX's weak types are. The
+    default floor and table gates have a 0 degree angle, so their cosine
+    is exactly 1 and only normals whose up component is exactly 1 pass."""
+    dev = planes.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    planes, areas, hull_heights = f32(planes), f32(areas), f32(hull_heights)
+    n_dot_up = xla_order.fma_sum3(planes[:, :3], f32(up))
+    floor_offset = xla_order.fma_sum3(planes[:, :3], f32(floor_point)) \
+        + planes[:, 3]
+
+    def horizontal(p: ClassifyHorizontalPlaneParams):
+        cos_max = math.cos(math.radians(
+            p.max_up_direction_delta_angle_degrees))
+        return ((n_dot_up >= f32(cos_max))
+                & ((f32(p.floor_offset) + floor_offset).abs()
+                   <= f32(p.max_floor_offset_deviation))
+                & (areas >= f32(p.min_area)) & (areas <= f32(p.max_area)))
+
+    cos_wall = math.cos(math.radians(
+        90.0 - config.wall_params.max_horizontal_delta_angle_degrees))
+    is_wall = ((n_dot_up.abs() <= f32(cos_wall))
+               & (hull_heights >= f32(config.wall_params.min_height)))
+    out = torch.where(is_wall, int(PlaneClass.WALL), int(PlaneClass.UNKNOWN))
+    out = torch.where(horizontal(config.coffee_table_params),
+                      int(PlaneClass.TABLE), out)
+    return torch.where(horizontal(config.floor_params),
+                       int(PlaneClass.FLOOR), out).to(torch.int32)

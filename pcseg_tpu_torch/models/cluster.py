@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from pcseg_tpu_torch.kernels.common import shift2
@@ -183,3 +184,16 @@ def segment_clusters(points: torch.Tensor, labels: torch.Tensor,
                              point_region + initial_id_offset, labels)
     return ClusterResult(labels=new_labels, num_regions=num_regions,
                          region_sizes=region_sizes, roots=roots)
+
+
+def gather_region_indices(labels, region_id, order="colmajor"):
+    """Host helper: col-major linear indices of a region's members in an
+    [H, W] label grid (an array or a CPU tensor), ascending. The
+    reference's inlier lists follow BFS order; both packages give the
+    ascending order (the set is what the outputs depend on). ``order`` is
+    JAX's parameter, which JAX does not read either: col-major is the only
+    order."""
+    del order
+    lbl = np.asarray(labels)
+    rows, cols = np.nonzero(lbl == region_id)
+    return np.sort(cols * lbl.shape[0] + rows)

@@ -20,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 
 from pcseg_tpu_torch.models.classify import plane_class_name
+from pcseg_tpu_torch.models.cluster import gather_region_indices
 from pcseg_tpu_torch.models.config import SEMANTIC_UNKNOWN
 from pcseg_tpu_torch.protos import pcseg_pb2
 
@@ -32,13 +33,6 @@ class DetectedObject:
     centroid: Optional[np.ndarray] = None  # planar only
     plane: Optional[np.ndarray] = None     # planar only, coeffs (n, d)
     discontinuous_boundary_positions: Optional[np.ndarray] = None
-
-
-def gather_region_indices(labels: np.ndarray, region_id: int) -> np.ndarray:
-    """Col-major linear indices of a region's members, ascending (the
-    reference's inlier lists follow BFS order; the set is what matters)."""
-    rows, cols = np.nonzero(np.asarray(labels) == region_id)
-    return np.sort(cols * labels.shape[0] + rows)
 
 
 def plane_to_proto(plane: np.ndarray, proto: pcseg_pb2.Plane3dProto) -> None:

@@ -145,6 +145,34 @@ def _masked_moments(mask, feat, psum=None):
     return sums.to(torch.float32)
 
 
+def flood_fill_static(gate, sources, rounds, max_run=None, impl=None):
+    """The 4-connected flood of ``sources`` through ``gate``, every slot on
+    its own: bool [K, H, W] (JAX's signature) or [B, K, H, W] in, the
+    reached cells out, same shape. The slots are packed into int32 word
+    planes (bit k % 32 of plane k // 32) and flooded by B3
+    (kernels/flood_packed.py): one cooperative launch for the whole stack
+    on the card, the plain version on the CPU. A round spreads along the
+    rows, then the columns; rounds repeat to the fixed point, at most
+    ``rounds``, the first one always.
+
+    ``max_run`` is kept for JAX's signature and not read: JAX's scans
+    double up to that bound on the longest gate run, which its docstring
+    makes the caller's promise, while the port scans whole runs. Wherever
+    the promise holds the result is JAX's."""
+    del max_run
+    batched = gate.dim() == 4
+    if not batched:
+        gate, sources = gate[None], sources[None]
+    b, k, h, w = gate.shape
+    nw = -(-k // 32)
+    reach = flood_packed.flood_packed(
+        flood_packed.pack_bits(gate).reshape(b * nw, h, w),
+        flood_packed.pack_bits(sources & gate).reshape(b * nw, h, w),
+        rounds, impl=impl)
+    out = flood_packed.unpack_bits(reach.reshape(b, nw, h, w), k)
+    return out if batched else out[0]
+
+
 class GrowerBackend:
     """The hooks of :func:`grow_planar_regions_batched` that differ between
     one device and a column shard (JAX's GrowerBackend contract;
@@ -169,15 +197,9 @@ class GrowerBackend:
         return x
 
     def flood(self, gate, src, rounds):
-        """The 4-connected flood of ``src`` through ``gate`` on packed
-        word planes (kernels/flood_packed.py, B3)."""
-        b, k, h, w = gate.shape
-        nw = -(-k // 32)
-        reach = flood_packed.flood_packed(
-            flood_packed.pack_bits(gate).reshape(b * nw, h, w),
-            flood_packed.pack_bits(src & gate).reshape(b * nw, h, w), rounds,
-            impl=self.impl)
-        return flood_packed.unpack_bits(reach.reshape(b, nw, h, w), k)
+        """The 4-connected flood of ``src`` through ``gate``
+        (:func:`flood_fill_static`, B3)."""
+        return flood_fill_static(gate, src, rounds, impl=self.impl)
 
     def dilate_rings(self, members, gate, n):
         """``n`` rings of gated 4-neighbourhood dilation."""

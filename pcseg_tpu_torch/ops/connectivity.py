@@ -7,8 +7,10 @@ gated window graph. Every component is labelled at once with its minimum
 col-major index by min-propagation: the scan CCL (row and column segmented
 min-scans, then the window offsets; kernels/ccl_gated.py up to 32 offsets)
 or the window CCL with pointer jumping (``ccl_mode="while"`` and the device
-mean-shift growth). ``reachable_from`` is the 4-connected flood of the
-sequential grower. Shapes carry a leading frame axis ``B``.
+mean-shift growth); ``connected_components_mask`` is the same rounds on a
+bool mask whose edges are joint membership. ``reachable_from`` is the
+4-connected flood of the sequential grower. Shapes carry a leading frame
+axis ``B``.
 """
 
 from __future__ import annotations
@@ -150,6 +152,49 @@ def connected_components_window(points, eligible, squared_threshold,
         prev, labels = labels, one_round(labels)
         it += 1
     return labels
+
+
+def connected_components_mask(mask, max_iters=64, num_jumps=2,
+                              neighborhood4=True):
+    """Component roots (min col-major index) of a bool mask under 4- (or
+    8-) adjacency, where the edge gate is joint membership (JAX's
+    ``connected_components_mask``). [H, W] as in JAX, or [B, H, W]; int32
+    out, H*W off the mask.
+
+    JAX's rounds in torch ops: from the col-major index on the mask, each
+    round takes the min over the gated shifted neighbours, then
+    ``num_jumps`` pointer jumps; the first round always runs, and rounds
+    repeat while a label changed, at most ``max_iters``. A batch stops
+    together: rounds past a frame's fixed point leave it as it is, so each
+    frame is JAX's also where ``max_iters`` binds."""
+    batched = mask.dim() == 3
+    if not batched:
+        mask = mask[None]
+    h, w = mask.shape[-2:]
+    big = h * w
+    offsets = ([(-1, 0), (1, 0), (0, -1), (0, 1)] if neighborhood4 else
+               [(dr, dc) for dr in (-1, 0, 1) for dc in (-1, 0, 1)
+                if (dr, dc) != (0, 0)])
+    gates = [mask & shift2(mask, dr, dc, False) for dr, dc in offsets]
+    init = torch.where(mask, colmajor_index_grid(h, w, mask.device),
+                       big).to(torch.int32)
+
+    def one_round(labels):
+        new = labels
+        for (dr, dc), gate in zip(offsets, gates):
+            new = torch.minimum(new, torch.where(
+                gate, shift2(labels, dr, dc, big), big))
+        for _ in range(num_jumps):
+            jumped = _lookup_colmajor(new, new, big)
+            new = torch.where(mask, torch.minimum(new, jumped), big)
+        return new
+
+    prev, labels = init, one_round(init)
+    it = 1
+    while it < max_iters and bool((labels != prev).any()):
+        prev, labels = labels, one_round(labels)
+        it += 1
+    return labels if batched else labels[0]
 
 
 def reachable_from(mask, sources, max_rounds=64):

@@ -1,7 +1,8 @@
 """Closed-form symmetric 3x3 eigensolve, planes and SE(3) poses (port of
 pcseg_tpu.ops.geom, the parts the pipeline uses).
 
-``eigh3x3_smallest_c`` follows Eigen's ``computeDirect`` (shift/scale,
+``eigh3x3_smallest_c`` (and its [..., 3, 3] form ``eigh3x3_smallest``)
+follows Eigen's ``computeDirect`` (shift/scale,
 trigonometric roots, cross-product kernel extraction) with the same f32
 operation order as the JAX version, so the knife edges of the reference's
 plane estimator (plane_estimator.cc:202-207) fall on the same side. It is
@@ -152,6 +153,15 @@ def eigh3x3_smallest_c(c00, c01, c02, c11, c12, c22, prev_normal=None):
         flip = dot < 0.0
         comp = [torch.where(flip, -c, c) for c in comp]
     return evals, torch.stack(comp, dim=-1)
+
+
+def eigh3x3_smallest(cov, prev_normal=None):
+    """:func:`eigh3x3_smallest_c` of [..., 3, 3] symmetric matrices (the
+    upper triangle is read): ``(evals [..., 3] ascending, vec [..., 3])``,
+    the same f32 semantics."""
+    return eigh3x3_smallest_c(
+        cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2], prev_normal)
 
 
 def plane_from_normal_point(normal, point):
