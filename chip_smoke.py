@@ -158,7 +158,21 @@ final result line):
      ``stage`` on four stages, whose names must be in the Chrome trace
      (the count of CUDA kernel records is printed, not gated);
      ``graft_entry.dryrun_multichip(1)``, its ok line; ``--nccl`` runs the
-     dry run over 2 and 4 cards after phase 26.
+     dry run over 2 and 4 cards after phase 26;
+ 28. the public functions at JAX's single-frame shapes on one VGA frame of
+     each scene (``conventions_phase``): normals (also on a sub-rectangle,
+     NaN or ``out_normals`` outside it), both seed finders and the seed
+     list, the temporal rank grid, ``rank_grid_from_seed_vector``, the
+     scan and window CCLs, ``segment_field`` (float min),
+     ``segment_clusters``, ``discontinuity_flags`` and, at 120x160,
+     ``mean_shift_modes``, each equal bitwise to frame 0 of its batched
+     call, and the kernel paths to their ``impl="plain"`` run; the grower
+     from the seed vector with default arguments equal to its call on the
+     vector's rank grid at 32 (B1) and 64 (B3) slots; the grower with
+     CONVENTION_SCHEDULE (flood cap 4, which must bind on some frame),
+     counted (B1 at 32 slots, B3 at 64) and equal to its plain run; the
+     single-frame CCL scan counted (one B2 launch) and equal to its plain
+     run; the times beside the card.
 
 On one card the run prints that phases 25 and 26 need two or more cards,
 with the ``--nccl`` command, and goes on.
@@ -1056,6 +1070,8 @@ def main():
         torch, card, dev, scenes, rays, origin, stream,
         (batches["cluttered"], rays_d, origin_d), segs, reset_counts,
         read_counts)
+    conv_launches, conv_times = conventions_phase(
+        torch, card, dev, scenes, rays, origin, reset_counts, read_counts)
 
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
@@ -1075,7 +1091,10 @@ def main():
              ms=e_ms, ms_per_call_of_10=e_10, plain_ms=e_plain,
              bound_ms=e_bound[0], bound_by=e_bound[1], library_ms=None,
              launches_entry_forward=surface_launches["entry_forward"][
-                 "epoch_word"]),
+                 "epoch_word"],
+             launches_single_frame_schedule={
+                 s: conv_launches[f"{s}_grower_k32_schedule"]["epoch_word"]
+                 for s in scenes}),
         dict(name="ccl_gated", route="cuda",
              source="pcseg_tpu_torch/csrc/ccl_gated.cu",
              replaces="pcseg_tpu/ops/connectivity.py:296",
@@ -1085,6 +1104,9 @@ def main():
              rounds_run=c_rounds, launches_unorganized_euclid=unorg_b2,
              launches_entry_forward=surface_launches["entry_forward"][
                  "ccl_gated"],
+             launches_single_frame_scan={
+                 s: conv_launches[f"{s}_ccl_scan"]["ccl_gated"]
+                 for s in scenes},
              voxel_grid=voxel_b2,
              launches_sharded_per_rank={
                  n: {s: [c[0] for c in per] for s, per in v.items()}
@@ -1100,6 +1122,9 @@ def main():
              bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
              launches_flood_fill_static=surface_launches[
                  "flood_fill_static"]["flood_packed"],
+             launches_single_frame_schedule={
+                 s: conv_launches[f"{s}_grower_k64_schedule"]["flood_packed"]
+                 for s in scenes},
              launches_sharded_per_rank={
                  n: {s: [c[1] for c in per] for s, per in v.items()}
                  for n, v in sharded_launches.items()},
@@ -1111,6 +1136,7 @@ def main():
     emit("times_unorganized", card=card, **unorg_times, **seq_times)
     emit("times_sharded", card=card, **sharded_times)
     emit("times_surface", card=card, **surface_times)
+    emit("times_conventions", card=card, **conv_times)
     print(json.dumps({"kernels": kernels}), flush=True)
     result_line(torch)
 
@@ -2016,6 +2042,226 @@ def surface_phase(torch, card, dev, scenes, rays, origin, stream,
     times["phase_27_seconds"] = time.perf_counter() - t_start
     return dict(flood_fill_static=flood_counts, entry_forward=entry_counts), \
         times
+
+
+# phase 28's grower schedule: a binding flood cap, no unboxed closure
+# epochs past the final one, stage A as 26 generations of one ring, and an
+# id offset (tests/test_torch_jax_conventions.py holds it to JAX)
+CONVENTION_SCHEDULE = dict(initial_id_offset=7, stage_a_gens=26,
+                           stage_a_rings=1, closure_epochs=0, flood_rounds=4)
+
+
+def conventions_phase(torch, card, dev, scenes, rays, origin, reset_counts,
+                      read_counts):
+    """Phase 28: the public functions at JAX's single-frame shapes on one
+    VGA frame of each scene. Each equals frame 0 of its batched call
+    bitwise; those with a kernel (the CCL scan, the clusters, the grower)
+    also equal their ``impl="plain"`` run. Normals on a sub-rectangle
+    equal the full normals inside it and NaN or ``out_normals`` outside.
+    The grower from the seed vector with default arguments equals the
+    call on the vector's rank grid at 32 (B1) and 64 (B3) slots; with
+    CONVENTION_SCHEDULE (its flood cap binds) the kernels equal the plain
+    versions, counted. ``connected_components_scan`` on one frame makes one
+    B2 launch. Returns ({call: launches}, times)."""
+    from pcseg_tpu_torch.models import (cluster, config, mean_shift,
+                                        planar_batched)
+    from pcseg_tpu_torch.ops import (connectivity, discontinuity, nansafe,
+                                     normals, seeds, unproject)
+    from pcseg_tpu_torch.ops.frames import frame0
+
+    t_start = time.perf_counter()
+    launches, times, bad = {}, {}, []
+    binds_any = False
+    origin_d = torch.from_numpy(origin).to(dev)
+    cfg = config.SegmenterConfig()
+
+    def same(name, got, want):
+        """Bitwise equality of tensors or NamedTuples of tensors (None
+        fields equal None)."""
+        if isinstance(got, tuple):
+            for f, g, w in zip(getattr(got, "_fields", range(len(got))),
+                               got, want):
+                same(f"{name}.{f}", g, w)
+        elif got is None or want is None:
+            if got is not want:
+                bad.append(name)
+        elif got.shape != want.shape or got.dtype != want.dtype:
+            bad.append(name)
+        elif got.is_floating_point():
+            if not bool(((got == want) | (got.isnan() & want.isnan()))
+                        .all()):
+                bad.append(name)
+        elif not torch.equal(got, want):
+            bad.append(name)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_counts()
+
+    for scene, u16 in scenes.items():
+        pts = torch.from_numpy(unproject.unproject_range_np(u16, rays)) \
+            .to(dev)
+        nrm = normals.compute_normals_organized(pts, origin_d, cfg.normals)
+        same(f"{scene}.normals", nrm, normals.compute_normals_organized(
+            pts[None], origin_d, cfg.normals)[0])
+        roi = dict(row_range=(100, 300), col_range=(150, 500))
+        inside = torch.zeros((H, W), dtype=torch.bool, device=dev)
+        inside[100:300, 150:500] = True
+        buf = torch.full_like(nrm, 2.0)
+        for out in (None, buf):
+            got = normals.compute_normals_organized(
+                pts, origin_d, cfg.normals, out_normals=out, **roi)
+            want = torch.where(inside[..., None], nrm, float("nan")
+                               if out is None else out)
+            same(f"{scene}.normals_roi_{'nan' if out is None else 'buf'}",
+                 got, want)
+        ranked = seeds.seeds_from_plane_support(
+            pts, nrm, cfg.plane_support_seeds, seed_vector=True)
+        same(f"{scene}.plane_support_seeds", ranked,
+             frame0(seeds.seeds_from_plane_support(
+                 pts[None], nrm[None], cfg.plane_support_seeds,
+                 seed_vector=True)))
+        if ranked.rank_grid.shape != (H, W) or ranked.indices.dim() != 1:
+            bad.append(f"{scene}.plane_support_seeds shapes")
+        avg = seeds.seeds_from_average_normals(nrm)
+        same(f"{scene}.average_normal_seeds", avg,
+             frame0(seeds.seeds_from_average_normals(nrm[None])))
+        same(f"{scene}.average_normal_seed_list",
+             seeds.average_normal_seed_list(avg, 4096),
+             frame0(seeds.average_normal_seed_list(
+                 seeds.SeedMask(*[t[None] for t in avg]), 4096)))
+        t_idx, t_found = ranked.indices[-5:], ranked.valid[-5:]
+        same(f"{scene}.append_temporal", seeds.append_temporal_to_rank_grid(
+            ranked.rank_grid, t_idx, t_found),
+            seeds.append_temporal_to_rank_grid(
+                ranked.rank_grid[None], t_idx[None], t_found[None])[0])
+
+        labels0 = torch.full((H, W), config.UNLABELED, dtype=torch.int32,
+                             device=dev)
+        grid = planar_batched.rank_grid_from_seed_vector(
+            ranked.indices, ranked.valid, H, W)
+        same(f"{scene}.rank_grid_from_seed_vector", grid,
+             planar_batched.rank_grid_from_seed_vector(
+                 ranked.indices[None], ranked.valid[None], H, W)[0])
+        for k in (32, 64):
+            pcfg = config.PlanarRegionConfig(max_regions=k)
+            from_vector = planar_batched.grow_planar_regions_batched(
+                pts, nrm, labels0, ranked.indices, ranked.valid, pcfg)
+            same(f"{scene}.grower_k{k}_seed_vector", from_vector,
+                 planar_batched.grow_planar_regions_batched(
+                     pts, nrm, labels0, None, None, pcfg,
+                     seed_rank_grid=grid))
+            sched, n = counted(
+                lambda: planar_batched.grow_planar_regions_batched(
+                    pts, nrm, labels0, ranked.indices, ranked.valid, pcfg,
+                    **CONVENTION_SCHEDULE))
+            launches[f"{scene}_grower_k{k}_schedule"] = n
+            plain = planar_batched.grow_planar_regions_batched(
+                pts, nrm, labels0, ranked.indices, ranked.valid, pcfg,
+                **CONVENTION_SCHEDULE, impl="plain")
+            same(f"{scene}.grower_k{k}_schedule_vs_plain", sched, plain)
+            free = planar_batched.grow_planar_regions_batched(
+                pts, nrm, labels0, ranked.indices, ranked.valid, pcfg,
+                **dict(CONVENTION_SCHEDULE, flood_rounds=64))
+            binds = not torch.equal(free.labels, sched.labels)
+            binds_any = binds_any or binds
+            offset_ok = int(sched.labels[sched.labels >= 0].min()) == \
+                CONVENTION_SCHEDULE["initial_id_offset"]
+            kernel = "epoch_word" if k <= 32 else "flood_packed"
+            if n[kernel] <= 0 or not offset_ok or \
+                    sched.labels.shape != (H, W):
+                bad.append(f"{scene}.grower_k{k}_schedule launches {n}, "
+                           f"offset {offset_ok}")
+            ms = cuda_ms(torch, lambda: planar_batched
+                         .grow_planar_regions_batched(
+                             pts, nrm, labels0, ranked.indices, ranked.valid,
+                             pcfg, **CONVENTION_SCHEDULE), reps=3)
+            plain_ms = cuda_ms(torch, lambda: planar_batched
+                               .grow_planar_regions_batched(
+                                   pts, nrm, labels0, ranked.indices,
+                                   ranked.valid, pcfg, **CONVENTION_SCHEDULE,
+                                   impl="plain"), reps=2)
+            times[f"{scene}_grower_k{k}_schedule_ms"] = ms
+            times[f"{scene}_grower_k{k}_schedule_plain_ms"] = plain_ms
+            emit("conventions_grower", card=card, scene=scene, slots=k,
+                 schedule=CONVENTION_SCHEDULE, launches=n,
+                 num_regions=int(sched.num_regions),
+                 num_regions_seed_vector_defaults=int(
+                     from_vector.num_regions),
+                 cap_binds=binds, ms=ms, plain_ms=plain_ms)
+
+        eligible = (labels0 == config.UNLABELED) & nansafe.all_finite(pts)
+        thr = cfg.cluster.squared_distance_threshold
+        half = cfg.cluster.half_search_window
+        roots, n = counted(lambda: connectivity.connected_components_scan(
+            pts, eligible, thr, half, cfg.cluster.scan_rounds))
+        launches[f"{scene}_ccl_scan"] = n
+        if n != dict(epoch_word=0, ccl_gated=1, flood_packed=0):
+            bad.append(f"{scene}.ccl_scan launches {n}")
+        same(f"{scene}.ccl_scan_vs_plain", roots,
+             connectivity.connected_components_scan(
+                 pts, eligible, thr, half, cfg.cluster.scan_rounds,
+                 impl="plain"))
+        same(f"{scene}.ccl_scan_vs_batch", roots,
+             connectivity.connected_components_scan(
+                 pts[None], eligible[None], thr, half,
+                 cfg.cluster.scan_rounds)[0])
+        times[f"{scene}_ccl_scan_ms"] = cuda_ms(
+            torch, lambda: connectivity.connected_components_scan(
+                pts, eligible, thr, half, cfg.cluster.scan_rounds), reps=3)
+        same(f"{scene}.ccl_window", connectivity.connected_components_window(
+            pts, eligible, thr, half),
+            connectivity.connected_components_window(
+                pts[None], eligible[None], thr, half)[0])
+        vals = torch.where(eligible, pts[..., 2], float("nan"))
+        same(f"{scene}.segment_field_min_f32", connectivity.segment_field(
+            vals, roots, eligible, H, W, "min"),
+            connectivity.segment_field(vals[None], roots[None],
+                                       eligible[None], H, W, "min")[0])
+        clusters = cluster.segment_clusters(
+            pts, labels0, None, cfg.cluster, canonical_seeds=True,
+            need_sizes=False)
+        same(f"{scene}.segment_clusters_vs_plain", clusters,
+             cluster.segment_clusters(
+                 pts, labels0, None, cfg.cluster, canonical_seeds=True,
+                 need_sizes=False, impl="plain"))
+        same(f"{scene}.segment_clusters_vs_batch", clusters,
+             frame0(cluster.segment_clusters(
+                 pts[None], labels0[None], None, cfg.cluster,
+                 canonical_seeds=True, need_sizes=False)))
+        rot = torch.eye(3, device=dev)
+        same(f"{scene}.discontinuity_flags", discontinuity.discontinuity_flags(
+            pts, nrm, sched.labels, rot, cfg.planar),
+            discontinuity.discontinuity_flags(
+                pts[None], nrm[None], sched.labels[None], rot,
+                cfg.planar)[0])
+        # the mean shift at phase 16's shape (121 offsets per iteration)
+        mh, mw = MS_DEVICE_SHAPE
+        mpts = pts[::H // mh, ::W // mw].contiguous()
+        mlab = torch.full((mh, mw), config.UNLABELED, dtype=torch.int32,
+                          device=dev)
+        same(f"{scene}.mean_shift_modes", mean_shift.mean_shift_modes(
+            mpts, mlab, 5), frame0(mean_shift.mean_shift_modes(
+                mpts[None], mlab[None], 5)))
+        emit("conventions_frame", card=card, scene=scene,
+             seed_cells=int((ranked.rank_grid < seeds.SEED_RANK_INF).sum()),
+             seed_vector=int(ranked.valid.sum()),
+             components=int(torch.unique(roots[eligible]).numel()),
+             clusters=int(clusters.num_regions),
+             ccl_launches=launches[f"{scene}_ccl_scan"],
+             ccl_ms=times[f"{scene}_ccl_scan_ms"], mismatches=bad)
+    times["phase_28_seconds"] = time.perf_counter() - t_start
+    emit("conventions", card=card, launches=launches, mismatches=bad,
+         cap_binds=binds_any, seconds=times["phase_28_seconds"])
+    if bad:
+        fail(f"phase 28: {bad}")
+    if not binds_any:
+        fail("phase 28: flood_rounds=4 bound on no frame; the schedule "
+             "comparison needs a binding cap")
+    return launches, times
 
 
 def dryrun_phase(card, n):

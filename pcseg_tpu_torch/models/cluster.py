@@ -16,7 +16,9 @@ driver pops the seed vector back to front, segmentation.h:254-255):
     member sees >= m same-root cells within Chebyshev radius w*(m-1));
     ``need_sizes=True`` sums per-root sizes for the size table.
 
-Shapes carry a leading frame axis ``B``.
+``segment_clusters`` takes JAX's single frame ([H, W, 3] points, [H, W]
+labels) or a batch with a leading frame axis ``B`` (ops/frames.py); the
+shapes below are the batch's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import UNLABELED, ClusterRegionConfig
 from pcseg_tpu_torch.ops import connectivity, nansafe
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 
 class ClusterResult(NamedTuple):
@@ -50,6 +53,7 @@ def canonical_seed_vector(h, w, device=None):
     return torch.arange(h * w - 1, -1, -1, dtype=torch.int32, device=device)
 
 
+@takes_frames(points=3, labels=2)
 def segment_clusters(points: torch.Tensor, labels: torch.Tensor,
                      seed_indices: Optional[torch.Tensor],
                      config: ClusterRegionConfig = ClusterRegionConfig(),
@@ -117,7 +121,7 @@ def segment_clusters(points: torch.Tensor, labels: torch.Tensor,
 
     # per-root sizes (roots are col-major indices; H*W = ineligible)
     sizes = connectivity.segment_field(eligible.to(torch.int32), roots,
-                                       eligible)
+                                       eligible, h, w)
     if canonical_seeds:
         accepted = sizes >= config.min_region_inliers
         region_id_by_root = torch.where(
@@ -154,7 +158,8 @@ def segment_clusters(points: torch.Tensor, labels: torch.Tensor,
         prio_cm.scatter_reduce_(1, safe, pop_pos, "amin")
         prio_grid = prio_cm.reshape(b, w, h).transpose(1, 2)
         min_prio = connectivity.segment_field(
-            torch.where(eligible, prio_grid, inf), roots, eligible, "min")
+            torch.where(eligible, prio_grid, inf), roots, eligible, h, w,
+            "min")
         accepted = (sizes >= config.min_region_inliers) & (min_prio < inf)
         # dense ids in acceptance order (ascending founding priority)
         order = torch.argsort(torch.where(accepted, min_prio, inf), dim=1,

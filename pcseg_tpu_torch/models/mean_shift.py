@@ -37,6 +37,7 @@ from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import (UNLABELED, ClusterRegionConfig,
                                            MeanShiftParams)
 from pcseg_tpu_torch.ops import connectivity, nansafe, xla_order
+from pcseg_tpu_torch.ops.frames import frame0, takes_frames
 
 
 class MeanShiftState(NamedTuple):
@@ -64,13 +65,15 @@ def _card(device):
     return "cuda"
 
 
+@takes_frames(points=3, labels=2)
 def mean_shift_modes(points: torch.Tensor, labels: torch.Tensor,
                      iterations: int,
                      params: MeanShiftParams = MeanShiftParams()
                      ) -> MeanShiftState:
-    """The shift fixed point of every eligible pixel of [B, H, W, 3]
-    ``points`` ([B, H, W] int32 ``labels``: only UNLABELED pixels seed and
-    contribute). Indices are row-major (r * W + c). The window's offsets
+    """The shift fixed point of every eligible pixel of [H, W, 3] or
+    [B, H, W, 3] ``points`` ([H, W] or [B, H, W] int32 ``labels``: only
+    UNLABELED pixels seed and contribute); the state's tables are [N, ...]
+    or [B, N, ...]. Indices are row-major (r * W + c). The window's offsets
     sum in JAX's order (dc outer, dr inner), in f32."""
     b, h, w = points.shape[:3]
     n = h * w
@@ -120,9 +123,12 @@ def mean_shift_modes(points: torch.Tensor, labels: torch.Tensor,
                           intensity=intensity, is_seed=is_seed)
 
 
-def _frame_state(state: MeanShiftState, frame: int = 0):
-    """One frame of a state as NumPy arrays (pos, idx, valid, intensity)."""
-    return tuple(t[frame].cpu().numpy()
+def _frame_state(state: MeanShiftState):
+    """The state of one frame (JAX's [N, ...] tables, or frame 0 of a
+    batch) as NumPy arrays (pos, idx, valid, intensity)."""
+    if state.valid.dim() == 2:
+        state = frame0(state)
+    return tuple(t.cpu().numpy()
                  for t in (state.pos, state.idx, state.valid,
                            state.intensity))
 
@@ -214,26 +220,24 @@ def mode_members(points, labels, seed_pos, start_lin, config, params):
     JAX's (a candidate the BFS rejects but the closure reaches joins)."""
     h, w = points.shape[:2]
     hw = h * w
-    pts = points[None]
-    finite = nansafe.all_finite(pts)
-    elig = (labels[None] == UNLABELED) & finite
-    ball = elig & (xla_order.sumsq(pts - seed_pos)
+    elig = (labels == UNLABELED) & nansafe.all_finite(points)
+    ball = elig & (xla_order.sumsq(points - seed_pos)
                    <= params.squared_centroid_distance_threshold)
     half = config.half_search_window
     comp_ball = connectivity.connected_components_window(
-        pts, ball, float("inf"), half)
+        points, ball, float("inf"), half)
     comp_004 = connectivity.connected_components_window(
-        pts, elig, params.squared_neighbor_distance_threshold, half)
+        points, elig, params.squared_neighbor_distance_threshold, half)
     lin = torch.arange(hw, dtype=torch.int64, device=points.device) \
-        .reshape(1, h, w)
+        .reshape(h, w)
     start = (lin == int(start_lin)) & ball
     offsets = connectivity.window_offsets(half)
 
     def joined(r, comp, cells):
-        table = connectivity.segment_field(r.to(torch.int32), comp, cells) > 0
-        hit = torch.gather(table, 1, comp.clamp(0, hw - 1).reshape(1, -1)
-                           .long()).reshape(1, h, w)
-        return r | (cells & (comp < hw) & hit)
+        table = connectivity.segment_field(r.to(torch.int32), comp, cells,
+                                           h, w) > 0
+        return r | (cells & (comp < hw) & table[comp.clamp(0, hw - 1)
+                                                .long()])
 
     def one_round(r):
         d = r
@@ -246,7 +250,7 @@ def mode_members(points, labels, seed_pos, start_lin, config, params):
     prev, r = start, one_round(start)
     while bool((r != prev).any()):
         prev, r = r, one_round(r)
-    return r[0]
+    return r
 
 
 def _rounded_starts(idx, h, w):
@@ -389,8 +393,8 @@ def sliding_mean_shift(points, labels, config: ClusterRegionConfig,
     device = _card(device)
     points = np.asarray(points, np.float32)
     state = mean_shift_modes(
-        torch.as_tensor(points, device=device)[None],
-        torch.as_tensor(labels.astype(np.int32), device=device)[None],
+        torch.as_tensor(points, device=device),
+        torch.as_tensor(labels.astype(np.int32), device=device),
         iterations, params)
     grow = {"device": grow_mean_shift_regions_batched,
             "device_permode": grow_mean_shift_regions_device}.get(growth)

@@ -157,11 +157,9 @@ class Segmenter:
                 points, nrm, labels0, idx, valid, cfg.planar,
                 initial_id_offset=0, max_attempts=cfg.max_region_attempts)
             return nrm, num_seeds, dev
-        if rank_grid is None:
-            rank_grid = planar_batched.rank_grid_from_seed_vector(
-                idx, valid, h, w)
         dev = planar_batched.grow_planar_regions_batched(
-            points, nrm, labels0, rank_grid, cfg.planar, impl=self.impl)
+            points, nrm, labels0, idx, valid, cfg.planar,
+            seed_rank_grid=rank_grid, impl=self.impl)
         return nrm, num_seeds, dev
 
     def _clusters(self, points, labels, need_sizes=True):

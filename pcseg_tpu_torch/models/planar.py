@@ -20,7 +20,8 @@ region, which grows from it:
 A region with fewer than ``min_region_inliers`` members marks them
 examined for the rest of the call (then unlabeled); the area and hull
 checks run in the host finalize. JAX's ``while_loop``s are host loops here,
-one frame after another; shapes carry a leading frame axis ``B``.
+one frame after another. ``grow_planar_regions`` takes JAX's single frame
+or a batch with a leading frame axis ``B`` (ops/frames.py).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from pcseg_tpu_torch.models.config import (
     EXAMINED, UNLABELED, PlanarRegionConfig)
 from pcseg_tpu_torch.models.planar_batched import PlanarRegions
 from pcseg_tpu_torch.ops import connectivity, geom, nansafe, plane_fit
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 
 def _dilate4(mask):
@@ -172,6 +174,7 @@ def _grow_frame(points, normals, labels, seed_indices, seed_valid, config,
             seeds_out, moments, overflow)
 
 
+@takes_frames(points=3, normals=3, labels=2, seed_indices=1, seed_valid=1)
 def grow_planar_regions(points: torch.Tensor, normals: torch.Tensor,
                         labels: torch.Tensor, seed_indices: torch.Tensor,
                         seed_valid: torch.Tensor,
@@ -180,13 +183,14 @@ def grow_planar_regions(points: torch.Tensor, normals: torch.Tensor,
                         max_attempts: int = 256) -> PlanarRegions:
     """Grow planar regions from ranked seeds, one at a time.
 
-    ``points``/``normals`` [B, H, W, 3] (NaN invalid); ``labels`` [B, H, W]
-    int32 (only UNLABELED cells can be claimed); ``seed_indices`` [B, S]
-    col-major seeds in the reference's vector order (popped back to front)
-    and ``seed_valid`` [B, S]; ``config.growth_mode`` is ``"wavefront"`` or
-    ``"hybrid"``; ``max_attempts`` bounds the region attempts (accepted and
-    rejected) of a frame. ``overflow`` is set when the attempts or the
-    region table ran out."""
+    ``points``/``normals`` [(B,) H, W, 3] (NaN invalid); ``labels``
+    [(B,) H, W] int32 (only UNLABELED cells can be claimed);
+    ``seed_indices`` [(B,) S] col-major seeds in the reference's vector
+    order (popped back to front) and ``seed_valid`` [(B,) S];
+    ``config.growth_mode`` is ``"wavefront"`` or ``"hybrid"``;
+    ``max_attempts`` bounds the region attempts (accepted and rejected) of
+    a frame. ``overflow`` is set when the attempts or the region table ran
+    out."""
     if config.growth_mode not in ("wavefront", "hybrid"):
         raise ValueError(f"the sequential grower runs 'wavefront' or "
                          f"'hybrid', not {config.growth_mode!r}")

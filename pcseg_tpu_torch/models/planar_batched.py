@@ -7,15 +7,17 @@ follows the seed rank grid: a slot's rank is the best rank among its
 members' seed cells and conflicts resolve to the best rank (see the JAX
 module for the full semantics map to segmentation.h / planar_region.h).
 
-  * Stage A: 13 generations of 2 gated 4-neighbourhood rings with a refit
-    at every 30-inlier crossing. On grids of at least 64x64 and 16384
-    cells it runs on 64x64 patches around each slot's founder
-    (``stage_a_patched``); below that on the full grid
-    (``generation``/``settle``) — the same switch as JAX.
+  * Stage A: ``stage_a_gens`` generations (13) of ``stage_a_rings`` (2)
+    gated 4-neighbourhood rings with a refit at every 30-inlier crossing.
+    On grids of at least 64x64 and 16384 cells it runs on 64x64 patches
+    around each slot's founder (``stage_a_patched``); below that on the
+    full grid (``generation``/``settle``) — the same switch as JAX.
   * Stage B: closure epochs under Chebyshev boxes growing by 4/3 per
-    epoch, then unboxed epochs. With K <= 32 each epoch is one call of the
-    epoch kernel (kernels/epoch_word.py) on the packed member word, as JAX
-    runs it on a TPU; with K > 32 (more slots than a word has bits) each
+    epoch, then ``closure_epochs`` + 1 unboxed epochs (3); every flood
+    stops at its fixed point or after ``flood_rounds`` rounds (64). With
+    K <= 32 each epoch is one call of the epoch kernel
+    (kernels/epoch_word.py) on the packed member word, as JAX runs it on a
+    TPU; with K > 32 (more slots than a word has bits) each
     epoch builds the slots' gates, floods them from the anchors on packed
     word planes (kernels/flood_packed.py) and settles the claims, as JAX's
     ``epoch``. A frame freezes once an unboxed epoch leaves its members
@@ -25,7 +27,9 @@ module for the full semantics map to segmentation.h / planar_region.h).
     slot covering >= 90% of their members; final claims, acceptance and
     dense ids in rank order.
 
-Every tensor carries a leading frame axis ``B``.
+The public functions take JAX's single frame ([H, W, 3] points, [H, W]
+grids, [S] seed vectors) or a batch with a leading frame axis ``B``
+(ops/frames.py); the shapes below are the batch's.
 """
 
 from __future__ import annotations
@@ -38,18 +42,13 @@ from pcseg_tpu_torch.kernels import epoch_word, flood_packed
 from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import UNLABELED, PlanarRegionConfig
 from pcseg_tpu_torch.ops import geom, nansafe, plane_fit
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 # Rank sentinel for "not a seed" / dead slot (== ops.seeds.SEED_RANK_INF).
 INF_RANK = 2 ** 30
 BIG_LIN = 2 ** 30
 N_TILES_AXIS = 8
 PATCH = 64
-# growth schedule (the JAX defaults): stage A = 13 generations of 2 rings,
-# then 2 unboxed closure epochs after the boxed ones, <= 64 flood rounds
-STAGE_A_GENS = 13
-STAGE_A_RINGS = 2
-CLOSURE_EPOCHS = 2
-FLOOD_ROUNDS = 64
 
 
 class PlanarRegions(NamedTuple):
@@ -88,6 +87,7 @@ def _select_frames(active, new: _Slots, old: _Slots) -> _Slots:
                     for n, o in zip(new, old)])
 
 
+@takes_frames(seed_indices=1, seed_valid=1)
 def rank_grid_from_seed_vector(seed_indices, seed_valid, h, w,
                                w_local=None, col0=0):
     """[B, H, W] int32 pop-rank grid from ranked seed vectors [B, S] (the
@@ -145,6 +145,7 @@ def _masked_moments(mask, feat, psum=None):
     return sums.to(torch.float32)
 
 
+@takes_frames(gate=3, sources=3)
 def flood_fill_static(gate, sources, rounds, max_run=None, impl=None):
     """The 4-connected flood of ``sources`` through ``gate``, every slot on
     its own: bool [K, H, W] (JAX's signature) or [B, K, H, W] in, the
@@ -160,17 +161,13 @@ def flood_fill_static(gate, sources, rounds, max_run=None, impl=None):
     makes the caller's promise, while the port scans whole runs. Wherever
     the promise holds the result is JAX's."""
     del max_run
-    batched = gate.dim() == 4
-    if not batched:
-        gate, sources = gate[None], sources[None]
     b, k, h, w = gate.shape
     nw = -(-k // 32)
     reach = flood_packed.flood_packed(
         flood_packed.pack_bits(gate).reshape(b * nw, h, w),
         flood_packed.pack_bits(sources & gate).reshape(b * nw, h, w),
         rounds, impl=impl)
-    out = flood_packed.unpack_bits(reach.reshape(b, nw, h, w), k)
-    return out if batched else out[0]
+    return flood_packed.unpack_bits(reach.reshape(b, nw, h, w), k)
 
 
 class GrowerBackend:
@@ -222,15 +219,31 @@ class GrowerBackend:
         return points[bidx, r, c], normals[bidx, r, c]
 
 
+@takes_frames(points=3, normals=3, labels=2, seed_indices=1, seed_valid=1,
+              seed_rank_grid=2)
 def grow_planar_regions_batched(
         points: torch.Tensor, normals: torch.Tensor, labels: torch.Tensor,
-        seed_rank_grid: torch.Tensor,
+        seed_indices, seed_valid,
         config: PlanarRegionConfig = PlanarRegionConfig(),
-        impl=None, backend: GrowerBackend = None) -> PlanarRegions:
-    """Batched planar growth over [B, H, W, 3] points/normals, [B, H, W]
-    int32 input labels and the [B, H, W] int32 seed rank grid
-    (ops/seeds.py). ``impl="plain"`` forces the epoch and flood kernels'
-    plain versions (tests and the smoke script only).
+        initial_id_offset: int = 0,
+        stage_a_gens: int = 13,
+        stage_a_rings: int = 2,
+        closure_epochs: int = 2,
+        seed_rank_grid: torch.Tensor = None,
+        flood_rounds: int = 64,
+        backend: GrowerBackend = None,
+        impl=None) -> PlanarRegions:
+    """Batched planar growth over [B, H, W, 3] points/normals and [B, H, W]
+    int32 input labels (JAX's ``grow_planar_regions_batched``, its
+    parameters in its order). The seeds are the [B, H, W] int32 rank grid
+    ``seed_rank_grid`` (ops/seeds.py) or, without it, the ranked seed
+    vectors ``seed_indices``/``seed_valid`` [B, S] (popped back to front;
+    ignored when the grid is given). ``initial_id_offset`` is added to the
+    labels the grower assigns. The schedule: ``stage_a_gens`` generations
+    of ``stage_a_rings`` rings, then the boxed epochs and
+    ``closure_epochs`` + 1 unboxed ones; each flood runs at most
+    ``flood_rounds`` rounds. ``impl="plain"`` forces the epoch and flood
+    kernels' plain versions (tests and the smoke script only).
 
     ``backend`` (a :class:`GrowerBackend`, parallel/sharded.py) grows a
     column shard: W is then the local column count, the slot tables come
@@ -251,6 +264,9 @@ def grow_planar_regions_batched(
 
     finite_pts = nansafe.all_finite(points)
     eligible0 = (labels == UNLABELED) & finite_pts
+    if seed_rank_grid is None:
+        seed_rank_grid = rank_grid_from_seed_vector(
+            seed_indices, seed_valid, h, w_total, w_local=w, col0=col0)
     cell_ok = eligible0 & nansafe.all_finite(normals)
     rank_grid = torch.where(cell_ok, seed_rank_grid, INF_RANK) \
         .to(torch.int32)
@@ -447,7 +463,7 @@ def grow_planar_regions_batched(
         slots = assign(slots)
         gate = slot_gate(slots)
         m = bk.dilate_rings(slots.members | onehot(slots.seed_idx), gate,
-                            STAGE_A_RINGS)
+                            stage_a_rings)
         return settle(slots, m)
 
     def flood_epoch(slots, radius):
@@ -462,13 +478,13 @@ def grow_planar_regions_batched(
                                                    <= radius)
         gate = slot_gate(slots) & (inbox | slots.members)
         return settle(slots, bk.flood(gate, onehot(slots.seed_idx),
-                                      FLOOD_ROUNDS))
+                                      flood_rounds))
 
     # --- patched stage A (grids >= 64x64 and >= 4 patches) ---------------
-    span = STAGE_A_GENS * STAGE_A_RINGS
+    span = stage_a_gens * stage_a_rings
     use_patches = (backend is None and h >= PATCH and w >= PATCH
                    and hw >= 4 * PATCH * PATCH
-                   and PATCH // 2 - span - STAGE_A_RINGS >= 1)
+                   and PATCH // 2 - span - stage_a_rings >= 1)
 
     def stage_a_patched(slots):
         half = PATCH // 2
@@ -502,7 +518,7 @@ def grow_planar_regions_batched(
         orc = torch.zeros_like(orr)
         mem_p = torch.zeros((b, k_cap, PATCH, PATCH), dtype=torch.bool,
                             device=dev)
-        for _ in range(STAGE_A_GENS):
+        for _ in range(stage_a_gens):
             owner = stamp_owner(orr, orc, mem_p, slots.rank, slots.alive)
             newly, new_seed, new_rank = pick_founders(slots, owner < INF_RANK)
             nr = new_seed % h
@@ -532,7 +548,7 @@ def grow_planar_regions_batched(
             aoh[bidx, kk, ar.clamp(0, PATCH - 1).long(),
                 ac.clamp(0, PATCH - 1).long()] = a_ok
             m = mem_p | (aoh & gate)
-            for _ in range(STAGE_A_RINGS):
+            for _ in range(stage_a_rings):
                 m = m | (_dilate4(m) & gate)
 
             owner2 = stamp_owner(orr, orc, m, slots.rank, slots.alive)
@@ -567,7 +583,7 @@ def grow_planar_regions_batched(
     if use_patches:
         slots = stage_a_patched(slots)
     else:
-        for _ in range(STAGE_A_GENS):
+        for _ in range(stage_a_gens):
             slots = generation(slots)
 
     # --- stage B: closure epochs ------------------------------------------
@@ -576,13 +592,14 @@ def grow_planar_regions_batched(
     while radius < max(h, w_total):
         radii.append(radius)
         radius = (radius * 4) // 3
-    radii += [max(h, w_total)] * (CLOSURE_EPOCHS + 1)
+    radii += [max(h, w_total)] * (closure_epochs + 1)
     if k_cap <= 32 and backend is None:
         slots = run_word_epochs(
             slots, radii, points=points, rank_grid=rank_grid,
             eligible0=eligible0, pick_founders=pick_founders, found=found,
             reanchor=reanchor, solve_with_hint=solve_with_hint,
-            apply_refit=apply_refit, tau=tau, impl=impl)
+            apply_refit=apply_refit, tau=tau, flood_rounds=flood_rounds,
+            impl=impl)
     else:
         first_full = _first_full(radii, h, w_total)
         active = torch.ones(b, dtype=torch.bool, device=dev)
@@ -640,7 +657,8 @@ def grow_planar_regions_batched(
         claim < k_cap,
         torch.gather(slot_id, 1, claim.clamp(0, k_cap - 1).reshape(b, -1)
                      .long()).reshape(b, h, w), -1)
-    new_labels = torch.where(claim_id >= 0, claim_id, labels)
+    new_labels = torch.where(claim_id >= 0, claim_id + initial_id_offset,
+                             labels)
 
     # the reported plane is the fit of the final members
     # (planar_region.h:195-196); degenerate fits recentre on the centroid
@@ -678,7 +696,7 @@ def _first_full(radii, h, w):
 
 def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
                     pick_founders, found, reanchor,
-                    solve_with_hint, apply_refit, tau, impl):
+                    solve_with_hint, apply_refit, tau, flood_rounds, impl):
     """Stage B: one epoch-kernel call per epoch on the packed member word,
     with the slot-table updates between calls (JAX's run_word_epochs). A
     frame freezes once an unboxed epoch leaves its word unchanged."""
@@ -716,7 +734,7 @@ def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
             px, py, pz, rank_grid, elig_i32, wd, s.rank.contiguous(),
             s.alive.to(torch.int32), s.plane.contiguous(), ar, ac,
             torch.full((b,), radius, dtype=torch.int32, device=dev), tau,
-            FLOOD_ROUNDS, impl=impl)
+            flood_rounds, impl=impl)
         alive = s.alive & (counts > 0) & (member_rank < INF_RANK)
         # distinct bits sum without carry (bit 31 is the sign, no overflow)
         keep = torch.where(alive, kbits[None], 0).sum(dim=1,

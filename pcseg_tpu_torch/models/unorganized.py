@@ -61,14 +61,13 @@ def cluster_unorganized(points,
     gx, gy = grid_shape
     grid = voxelize.voxelize_xy(pts, cell_size, grid_shape, origin)
 
-    labels0 = torch.full((1, gx, gy), UNLABELED, dtype=torch.int32,
+    labels0 = torch.full((gx, gy), UNLABELED, dtype=torch.int32,
                          device=pts.device)
     cell_config = dataclasses.replace(config, min_region_inliers=1)
-    res = cluster_model.segment_clusters(
-        grid.points[None], labels0,
+    cell_labels = cluster_model.segment_clusters(
+        grid.points, labels0,
         cluster_model.canonical_seed_vector(gx, gy, pts.device), cell_config,
-        initial_id_offset=0, impl=impl)
-    cell_labels = res.labels[0]
+        initial_id_offset=0, impl=impl).labels
     raw = voxelize.scatter_labels_to_points(cell_labels, grid.point_cell)
 
     # raw cell-component ids are dense but reach gx*gy (every noise cell

@@ -9,8 +9,9 @@ min-scans, then the window offsets; kernels/ccl_gated.py up to 32 offsets)
 or the window CCL with pointer jumping (``ccl_mode="while"`` and the device
 mean-shift growth); ``connected_components_mask`` is the same rounds on a
 bool mask whose edges are joint membership. ``reachable_from`` is the
-4-connected flood of the sequential grower. Shapes carry a leading frame
-axis ``B``.
+4-connected flood of the sequential grower. Each function takes JAX's
+single frame ([H, W, 3] points, [H, W] grids) or a batch with a leading
+frame axis ``B`` (ops/frames.py); the shapes below are the batch's.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from pcseg_tpu_torch.kernels import ccl_gated, common
 from pcseg_tpu_torch.kernels.common import shift2
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 
 def colmajor_index_grid(h, w, device=None):
@@ -77,9 +79,10 @@ def _gate_bits(points, eligible, squared_threshold, offsets):
     return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
 
 
+@takes_frames(points=3, eligible=2, init_labels=2)
 def connected_components_scan(points, eligible, squared_threshold,
-                              half_window, rounds=24, impl=None,
-                              init_labels=None, big_value=None):
+                              half_window, rounds=24, init_labels=None,
+                              big_value=None, impl=None):
     """Gated CCL of [B, H, W, 3] points over the eligible cells.
 
     Returns [B, H, W] int32: the min col-major index of each cell's
@@ -121,6 +124,7 @@ def _lookup_colmajor(values, indices, fill):
     return torch.where(indices >= h * w, fill, out)
 
 
+@takes_frames(points=3, eligible=2)
 def connected_components_window(points, eligible, squared_threshold,
                                 half_window, max_iters=256, num_jumps=2):
     """Component roots by min-propagation over the window with pointer
@@ -154,6 +158,7 @@ def connected_components_window(points, eligible, squared_threshold,
     return labels
 
 
+@takes_frames(mask=2)
 def connected_components_mask(mask, max_iters=64, num_jumps=2,
                               neighborhood4=True):
     """Component roots (min col-major index) of a bool mask under 4- (or
@@ -167,9 +172,6 @@ def connected_components_mask(mask, max_iters=64, num_jumps=2,
     repeat while a label changed, at most ``max_iters``. A batch stops
     together: rounds past a frame's fixed point leave it as it is, so each
     frame is JAX's also where ``max_iters`` binds."""
-    batched = mask.dim() == 3
-    if not batched:
-        mask = mask[None]
     h, w = mask.shape[-2:]
     big = h * w
     offsets = ([(-1, 0), (1, 0), (0, -1), (0, 1)] if neighborhood4 else
@@ -194,7 +196,7 @@ def connected_components_mask(mask, max_iters=64, num_jumps=2,
     while it < max_iters and bool((labels != prev).any()):
         prev, labels = labels, one_round(labels)
         it += 1
-    return labels if batched else labels[0]
+    return labels
 
 
 def reachable_from(mask, sources, max_rounds=64):
@@ -212,12 +214,17 @@ def reachable_from(mask, sources, max_rounds=64):
     return (reach != 0).reshape(shape)
 
 
-def segment_field(values, roots, eligible, reduce="sum"):
+@takes_frames(values=2, roots=2, eligible=2)
+def segment_field(values, roots, eligible, h, w, reduce="sum"):
     """Reduce [B, H, W] ``values`` over the cells of each component of the
     col-major ``roots`` (H*W = no component): ``"sum"`` over the eligible
-    cells (0 elsewhere), ``"min"`` over the values as given (the integer
-    maximum where a root has no cell). Returns [B, H*W] indexed by root."""
-    b, h, w = values.shape
+    cells (0 elsewhere), ``"min"`` over the values as given (the dtype's
+    largest value, +inf for floats, where a root has no cell: the identity
+    of ``jax.ops.segment_min``). Returns [B, H*W] indexed by root."""
+    b = values.shape[0]
+    if tuple(values.shape[1:]) != (h, w):
+        raise ValueError(f"values of shape {tuple(values.shape)} on an "
+                         f"{h}x{w} grid")
     seg = roots.reshape(b, -1).long()
     if reduce == "sum":
         out = torch.zeros((b, h * w + 1), dtype=values.dtype,
@@ -225,8 +232,10 @@ def segment_field(values, roots, eligible, reduce="sum"):
         out.scatter_add_(1, seg, torch.where(eligible, values, 0)
                          .reshape(b, -1))
     elif reduce == "min":
-        out = torch.full((b, h * w + 1), torch.iinfo(values.dtype).max,
-                         dtype=values.dtype, device=values.device)
+        top = float("inf") if values.dtype.is_floating_point \
+            else torch.iinfo(values.dtype).max
+        out = torch.full((b, h * w + 1), top, dtype=values.dtype,
+                         device=values.device)
         out.scatter_reduce_(1, seg, values.reshape(b, -1), "amin")
     else:
         raise ValueError(f"unknown reduce {reduce!r}")

@@ -14,7 +14,8 @@ not depend on whether the rejection happened yet.
 
 |dz| and ||delta|| stay f32 here, as in the JAX stencil (the host stencil
 of the reference widens them to f64; the gates sit far above the
-difference). Shapes carry a leading frame axis ``B``.
+difference). ``discontinuity_flags`` takes JAX's single frame or a batch
+with a leading frame axis ``B`` (ops/frames.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import PlanarRegionConfig
 from pcseg_tpu_torch.ops import nansafe
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 
 def _shift_cells(x, dr, dc, fill):
@@ -33,12 +35,14 @@ def _shift_cells(x, dr, dc, fill):
     return shift2(x.movedim(-1, 1), dr, dc, fill).movedim(1, -1)
 
 
+@takes_frames(points=3, normals=3, labels=2)
 def discontinuity_flags(points: torch.Tensor, normals: torch.Tensor,
                         labels: torch.Tensor, rot_robot: torch.Tensor,
                         config: PlanarRegionConfig) -> torch.Tensor:
-    """[B, H, W] bool: the pixel fails every same-label smooth/shadow test.
+    """[H, W] or [B, H, W] bool: the pixel fails every same-label
+    smooth/shadow test.
 
-    ``points``/``normals`` [B, H, W, 3] f32, ``labels`` [B, H, W] int32
+    ``points``/``normals`` [(B,) H, W, 3] f32, ``labels`` [(B,) H, W] int32
     (the device labels at growth time), ``rot_robot`` [3, 3]: the rotation
     of robot_pose_point_cloud. Every sum runs in the JAX stencil's order,
     each product and sum rounded to f32.

@@ -344,3 +344,6 @@ class Pose:
                                         dtype=self.quat.dtype,
                                         device=self.quat.device)
         return Pose(qinv, -quat_rotate(qinv, self.trans))
+
+    def astype(self, dtype):
+        return Pose(self.quat.to(dtype), self.trans.to(dtype))

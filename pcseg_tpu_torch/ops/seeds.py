@@ -10,8 +10,10 @@ pop rank in the reference's order (count desc, col-major index desc). The
 reference indexes its grids transposed (``points.AtUnsafe(col, row)``);
 the JAX package replicates that quirk and so does this port, including
 the min-fold over shifted planes that non-square grids produce (see
-pcseg_tpu.ops.seeds.plane_support_rank_grid). Shapes carry a leading frame
-axis ``B``.
+pcseg_tpu.ops.seeds.plane_support_rank_grid). Each function takes JAX's
+single frame ([H, W, 3] points and normals, [H, W] grids, [R] or [T]
+tables) or a batch with a leading frame axis ``B`` (ops/frames.py); the
+shapes below are the batch's.
 
 The dense rank grid is what the batched grower consumes; the sequential
 grower takes the top-``max_seeds`` seed vector (``seed_vector=True``).
@@ -41,22 +43,26 @@ from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import (SeedsFromAverageNormalsParams,
                                            SeedsFromPlaneSupportParams)
 from pcseg_tpu_torch.ops import nansafe, xla_order
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 # == models.planar_batched.INF_RANK
 SEED_RANK_INF = int(np.int32(2 ** 30))
 
 
 class RankedSeeds(NamedTuple):
-    count: torch.Tensor      # [B, H, W] int32 support counts (diagnostic)
-    # [B, H, W] int32 pop-priority grid over EVERY qualifying seed (smaller
-    # = popped earlier); SEED_RANK_INF where not a seed
-    rank_grid: torch.Tensor
+    """JAX's fields in JAX's order; the seed vector is ranked only on
+    request (``seed_vector=True``), else its fields are None."""
     # [B, S] int32 col-major seed vector in the reference's order (the
-    # last pops first) and its valid mask; only with ``seed_vector=True``
+    # last pops first) and its valid mask
     indices: Optional[torch.Tensor] = None
     valid: Optional[torch.Tensor] = None
+    count: Optional[torch.Tensor] = None  # [B, H, W] int32 support counts
+    # [B, H, W] int32 pop-priority grid over EVERY qualifying seed (smaller
+    # = popped earlier); SEED_RANK_INF where not a seed
+    rank_grid: Optional[torch.Tensor] = None
 
 
+@takes_frames(points=3, normals=3)
 def plane_support_counts(points, normals, params):
     """Per-pixel plane-support counts in the orientation given: the plane
     at (r, c) tested against the window points[r±h, c±h]. [B, A, C, 3] in,
@@ -85,6 +91,7 @@ def plane_support_counts(points, normals, params):
     return count, center_ok
 
 
+@takes_frames(count=2, qualifies=2)
 def plane_support_rank_grid(count, qualifies, h, w, cmax):
     """Dense [B, H, W] pop-priority grid from the support counts (see
     pcseg_tpu.ops.seeds.plane_support_rank_grid for the derivation).
@@ -120,6 +127,7 @@ def plane_support_rank_grid(count, qualifies, h, w, cmax):
     return out
 
 
+@takes_frames(count=2, qualifies=2)
 def rank_plane_support_seeds(count, qualifies, h, w, max_seeds):
     """The reference's multimap order as a seed vector ([B, S] int32
     col-major indices, [B, S] valid; S = min(max_seeds, H*W)): ascending
@@ -140,38 +148,40 @@ def rank_plane_support_seeds(count, qualifies, h, w, max_seeds):
         .to(torch.int32), valid
 
 
+@takes_frames(points=3, normals=3)
 def seeds_from_plane_support(
         points: torch.Tensor, normals: torch.Tensor,
         params: SeedsFromPlaneSupportParams = SeedsFromPlaneSupportParams(),
-        seed_vector: bool = False,
-        transposed_parity: bool = True) -> RankedSeeds:
-    """FindSeedPointsFromPlaneSupport over [B, H, W, 3] points/normals, in
-    the reference's transposed grid orientation, or with
-    ``transposed_parity=False`` the natural one (the corrected semantics of
-    the sharded step, parallel/sharded.py). ``seed_vector=True`` also ranks
-    the top-``max_seeds`` seed vector (the sequential grower's input)."""
+        transposed_parity: bool = True,
+        seed_vector: bool = False) -> RankedSeeds:
+    """FindSeedPointsFromPlaneSupport over [H, W, 3] or [B, H, W, 3]
+    points/normals, in the reference's transposed grid orientation, or
+    with ``transposed_parity=False`` the natural one (the corrected
+    semantics of the sharded step, parallel/sharded.py).
+    ``seed_vector=True`` also ranks the top-``max_seeds`` seed vector (the
+    sequential grower's input)."""
     b, h, w = points.shape[:3]
     dev = points.device
     if h < params.neighborhood_size or w < params.neighborhood_size:
         none = torch.zeros((b, params.max_seeds), dtype=torch.int32,
-                           device=dev)
+                           device=dev) if seed_vector else None
         return RankedSeeds(
+            none, None if none is None else none.bool(),
             torch.zeros((b, h, w), dtype=torch.int32, device=dev),
             torch.full((b, h, w), SEED_RANK_INF, dtype=torch.int32,
-                       device=dev),
-            *((none, none.bool()) if seed_vector else ()))
+                       device=dev))
     if transposed_parity:
         points, normals = points.transpose(1, 2), normals.transpose(1, 2)
     count, center_ok = plane_support_counts(points, normals, params)
     qualifies = center_ok & (count >= params.min_num_support_points)
     rank_grid = plane_support_rank_grid(
         count, qualifies, h, w, cmax=params.neighborhood_size ** 2 + 1)
-    vector = rank_plane_support_seeds(count, qualifies, h, w,
-                                      params.max_seeds) \
-        if seed_vector else ()
+    indices, valid = rank_plane_support_seeds(count, qualifies, h, w,
+                                              params.max_seeds) \
+        if seed_vector else (None, None)
     count_rc = count.transpose(1, 2).contiguous() if transposed_parity \
         else count
-    return RankedSeeds(count_rc, rank_grid, *vector)
+    return RankedSeeds(indices, valid, count_rc, rank_grid)
 
 
 # -- average-normal seeds -----------------------------------------------------
@@ -199,12 +209,14 @@ class SeedMask(NamedTuple):
     score: torch.Tensor       # [B, H, W] squared average normal length
 
 
+@takes_frames(normals=3)
 def seeds_from_average_normals(
         normals: torch.Tensor,
         params: SeedsFromAverageNormalsParams = SeedsFromAverageNormalsParams()
 ) -> SeedMask:
-    """FindSeedPointsFromAverageNormals over [B, H, W, 3] normals, dense:
-    position (r, c) emits the seed index ``lin(r, c) - half``."""
+    """FindSeedPointsFromAverageNormals over [H, W, 3] or [B, H, W, 3]
+    normals, dense: position (r, c) emits the seed index
+    ``lin(r, c) - half``."""
     b, h, w = normals.shape[:3]
     dev = normals.device
     nbh = params.neighborhood_size
@@ -242,6 +254,7 @@ def seeds_from_average_normals(
     return SeedMask(mask=mask, seed_index=seed_index, score=score_rc)
 
 
+@takes_frames(seed_mask=2)
 def average_normal_seed_list(seed_mask: SeedMask, max_seeds: int):
     """Seed vectors [B, S] in the reference's emit order (row-outer, then
     column), S = min(max_seeds, H*W): (indices int32, valid bool). The
@@ -259,6 +272,7 @@ def average_normal_seed_list(seed_mask: SeedMask, max_seeds: int):
 
 # -- temporal seeds -----------------------------------------------------------
 
+@takes_frames(rank_grid=2, t_idx=1, t_found=1)
 def append_temporal_to_rank_grid(rank_grid, t_idx, t_found):
     """Scatter temporal seeds [B, T] into [B, H, W] rank grids with ranks
     -1, -2, ... (-(i + 1)), below every per-frame seed's: the reference
@@ -275,6 +289,8 @@ def append_temporal_to_rank_grid(rank_grid, t_idx, t_found):
     return flat_cm.reshape(b, w, h).transpose(1, 2).contiguous()
 
 
+@takes_frames(points=3, normals=3, prev_centroids=2, prev_normals=2,
+              prev_counts=1, prev_valid=1)
 def seeds_from_last_regions(points, normals, prev_centroids, prev_normals,
                             prev_counts, prev_valid, pose_cur_prev,
                             max_distance: float,

@@ -89,10 +89,9 @@ def sharded_normals(points_local, sensor_origin,
     only."""
     k = params.max_scan_steps
     padded = exchange_halo(points_local, k, comm, fill=float("nan"))
-    support = _crop(normals_op.find_normal_support(padded[None], params),
-                    k, 2)
-    return normals_op.normals_from_support(
-        support, points_local[None], sensor_origin, params)[0]
+    support = _crop(normals_op.find_normal_support(padded, params), k, 1)
+    return normals_op.normals_from_support(support, points_local,
+                                           sensor_origin, params)
 
 
 def _support_counts(points_local, normals_local, params, comm):
@@ -101,9 +100,9 @@ def _support_counts(points_local, normals_local, params, comm):
     half = params.neighborhood_size // 2
     pp = exchange_halo(points_local, half, comm, fill=float("nan"))
     np_ = exchange_halo(normals_local, half, comm, fill=float("nan"))
-    count, ok = seeds_op.plane_support_counts(pp[None], np_[None], params)
-    count = crop_halo(count[0], half)
-    ok = crop_halo(ok[0], half)
+    count, ok = seeds_op.plane_support_counts(pp, np_, params)
+    count = crop_halo(count, half)
+    ok = crop_halo(ok, half)
     return count, ok & (count >= params.min_num_support_points)
 
 
@@ -369,41 +368,25 @@ class _ShardedGrowerBackend(pb.GrowerBackend):
         return self.comm.psum(pt), self.comm.psum(nm)
 
 
-def _frame(regions: PlanarRegions) -> PlanarRegions:
-    """Frame 0 of a batched region table."""
-    return PlanarRegions(*[
-        plane_fit.PlaneMoments(*[t[0] for t in f])
-        if isinstance(f, plane_fit.PlaneMoments) else f[0]
-        for f in regions])
-
-
 def sharded_grow_planar_regions_batched(
         points_local, normals_local, labels_local, seed_indices, seed_valid,
         config: PlanarRegionConfig, h, w, comm: Comm,
-        initial_id_offset: int = 0, seed_rank_grid=None,
-        impl=None) -> PlanarRegions:
+        initial_id_offset: int = 0, **grower_kwargs) -> PlanarRegions:
     """Column-sharded batched grower: the single-device grower
     (models/planar_batched.grow_planar_regions_batched) with the sharded
-    hooks, so one and many devices run the same algorithm. The rank grid
-    comes from ``seed_rank_grid`` ([H, W_local]) or else from the seed
-    vector. Labels come back as the local block; the tables are
-    replicated. The moment sums merge in f64 before their rounding to f32,
-    so the shards' partials add to the single-device sums up to f64
-    rounding."""
-    wl = points_local.shape[1]
-    bk = _ShardedGrowerBackend(comm, w, wl, impl)
-    if seed_rank_grid is None:
-        seed_rank_grid = pb.rank_grid_from_seed_vector(
-            seed_indices[None], seed_valid[None], h, w, w_local=wl,
-            col0=bk.col0)[0]
-    res = _frame(pb.grow_planar_regions_batched(
-        points_local[None], normals_local[None], labels_local[None],
-        seed_rank_grid[None], config, impl=impl, backend=bk))
-    if initial_id_offset:
-        claimed = (labels_local == UNLABELED) & (res.labels != UNLABELED)
-        res = res._replace(labels=torch.where(
-            claimed, res.labels + initial_id_offset, res.labels))
-    return res
+    hooks, so one and many devices run the same algorithm. The other
+    arguments of the grower pass through ``grower_kwargs``
+    (``seed_rank_grid`` [H, W_local], the schedule, ``impl``); without a
+    rank grid the grower ranks the GLOBAL seed vector into the block.
+    Labels come back as the local block; the tables are replicated. The
+    moment sums merge in f64 before their rounding to f32, so the shards'
+    partials add to the single-device sums up to f64 rounding."""
+    del h  # the block's rows; kept for JAX's signature
+    bk = _ShardedGrowerBackend(comm, w, points_local.shape[1],
+                               grower_kwargs.get("impl"))
+    return pb.grow_planar_regions_batched(
+        points_local, normals_local, labels_local, seed_indices, seed_valid,
+        config, initial_id_offset, backend=bk, **grower_kwargs)
 
 
 def sharded_connected_components(points_local, eligible_local,
@@ -432,9 +415,9 @@ def sharded_connected_components(points_local, eligible_local,
     dev = points_local.device
     rows, cols = _global_cols(h, w_local, comm, dev)
     labels = connectivity.connected_components_scan(
-        points_local[None], eligible_local[None], squared_threshold, k,
-        rounds=max_rounds, impl=impl, init_labels=cols * h + rows,
-        big_value=hw)[0]
+        points_local, eligible_local, squared_threshold, k,
+        rounds=max_rounds, init_labels=cols * h + rows, big_value=hw,
+        impl=impl)
 
     pp = exchange_halo(points_local, k, comm, fill=float("nan"))
     ep = exchange_halo(eligible_local, k, comm, fill=False)

@@ -226,7 +226,8 @@ def test_f64_refit_sums_give_the_port_s_frame():
     got = planar_batched.grow_planar_regions_batched(
         _t(pts)[None], _t(np.asarray(nrm))[None],
         torch.full((1, 128, 160), config.UNLABELED, dtype=torch.int32),
-        _t(np.asarray(rank))[None], config.PlanarRegionConfig())
+        None, None, config.PlanarRegionConfig(),
+        seed_rank_grid=_t(np.asarray(rank))[None])
     np.testing.assert_array_equal(got.labels[0].numpy(), want64)
     assert int(got.num_regions[0]) == len(np.unique(want64[want64 >= 0]))
     assert (want32 != want64).sum() > 0

@@ -213,9 +213,9 @@ def test_grower_k40_matches_jax(shape):
     launches = flood_packed.launches
     got = planar_batched.grow_planar_regions_batched(
         torch.from_numpy(pts), torch.from_numpy(np.array(nrm)),
-        torch.full(pts.shape[:3], UNLABELED, dtype=torch.int32),
-        torch.from_numpy(np.array(rank_grid)),
-        config.PlanarRegionConfig(max_regions=40))
+        torch.full(pts.shape[:3], UNLABELED, dtype=torch.int32), None, None,
+        config.PlanarRegionConfig(max_regions=40),
+        seed_rank_grid=torch.from_numpy(np.array(rank_grid)))
     assert flood_packed.launches == launches  # CPU tensors: plain version
     want_n = np.asarray(want.num_regions)
     np.testing.assert_array_equal(got.num_regions.numpy(), want_n)

@@ -86,8 +86,8 @@ def test_grower_matches_jax(shape):
     nrm, rank_grid, want = jax.jit(jax.vmap(jax_one))(jnp.asarray(pts))
     got = planar_batched.grow_planar_regions_batched(
         torch.from_numpy(pts), torch.from_numpy(np.array(nrm)),
-        torch.full(pts.shape[:3], UNLABELED, dtype=torch.int32),
-        torch.from_numpy(np.array(rank_grid)))
+        torch.full(pts.shape[:3], UNLABELED, dtype=torch.int32), None, None,
+        seed_rank_grid=torch.from_numpy(np.array(rank_grid)))
     want_n = np.asarray(want.num_regions)
     np.testing.assert_array_equal(got.num_regions.numpy(), want_n)
     np.testing.assert_array_equal(got.labels.numpy(),

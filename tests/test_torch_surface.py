@@ -448,6 +448,16 @@ NOT_PORTED = {
     "parallel.distributed": {"make_global_mesh", "host_local_to_global",
                              "global_to_host_replicated"},
     "parallel.sharded": {"make_mesh"},
+    # JAX's environment switches (read as PCSEG_*): the debug switches and
+    # backend selectors of its XLA program (the port selects by impl=), the
+    # stage-A schedule and the grower's debug escape hatches (the schedule
+    # is the grower's stage_a_gens/stage_a_rings parameters; the box
+    # factor stays 4/3, the default every JAX caller runs), and the host
+    # library's cache directory (the port builds inside its checkout)
+    "env": {"PCSEG_DEBUG_BATCHED", "PCSEG_DEBUG_TRACK", "PCSEG_GROW_SKIP",
+            "PCSEG_EPOCH_IMPL", "PCSEG_FLOOD_IMPL", "PCSEG_CCL_IMPL",
+            "PCSEG_STAGE_A", "PCSEG_STAGEA", "PCSEG_RADII_FACTOR",
+            "PCSEG_NATIVE_CACHE"},
 }
 
 
@@ -483,6 +493,125 @@ def test_every_public_name_of_the_jax_package_has_a_port_counterpart():
     for counterpart in ("make_group", "local_columns", "gather_columns"):
         assert hasattr(importlib.import_module(
             "pcseg_tpu_torch.parallel.distributed"), counterpart)
+
+
+def _switches(package):
+    import re
+    found = set()
+    for root, _, files in os.walk(os.path.join(ROOT, package)):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    found |= set(re.findall(r"PCSEG_[A-Z_]+", fh.read()))
+    return found
+
+
+def test_jax_environment_switches_are_listed_and_the_port_reads_none():
+    assert _switches("pcseg_tpu") == NOT_PORTED["env"]
+    assert _switches("pcseg_tpu_torch") == set()
+
+
+# JAX parameters whose port counterpart has another name or default, or
+# none: {function: ({JAX parameter: port parameter, or None}, reason)}.
+# A parameter reads "name" or "name=default"; "*" stands for every
+# parameter of the function.
+RENAMED = {
+    "ops.nansafe.all_finite": (
+        {"axis=-1": "dim=-1"}, "torch names an axis dim"),
+    "parallel.halo.exchange_halo": (
+        {"axis_name": "comm", "axis=1": "dim=1"},
+        "a rank's group is a Comm, not a mesh axis; torch names an axis dim"),
+    "parallel.halo.crop_halo": ({"axis=1": "dim=1"},
+                                "torch names an axis dim"),
+    **{f"parallel.sharded.{fn}": ({"axis": "comm"},
+                                  "a rank's group is a Comm, not a mesh axis")
+       for fn in ("sharded_normals", "sharded_plane_support_seeds",
+                  "sharded_plane_support_rank_grid",
+                  "sharded_grow_planar_regions",
+                  "sharded_grow_planar_regions_batched",
+                  "sharded_connected_components")},
+    "parallel.sharded.build_sharded_segment_step": (
+        {"mesh": "comm", "axis='space'": None},
+        "the Comm takes the place of the mesh and of its axis name"),
+    "parallel.distributed.initialize": (
+        "*", "torch.distributed's rendezvous (backend, init method, world "
+        "size, rank) takes the place of JAX's coordinator parameters"),
+    "models.unorganized.cluster_unorganized_mean_shift": (
+        {"backend='auto'": "backend='device'"},
+        "entry points run on the card unless the caller asks for the host"),
+}
+
+
+def _param(p):
+    """A parameter as "name" or "name=default"; dtypes by their name, so
+    jnp.float32 reads as torch.float32 does."""
+    if p.default is p.empty:
+        return p.name
+    d = p.default
+    name = getattr(d, "__name__", None) if isinstance(d, type) else None
+    return f"{p.name}={name or str(d).replace('torch.', '')}" \
+        if name or isinstance(d, torch.dtype) else f"{p.name}={d!r}"
+
+
+def _params(fn):
+    import inspect
+    return [_param(p) for p in inspect.signature(fn).parameters.values()]
+
+
+def public_callables(package_mod, names):
+    """(qualified name, object) of the public functions, classes and
+    class methods among ``names`` of a module."""
+    import inspect
+    for n in sorted(names):
+        obj = getattr(package_mod, n)
+        yield n, obj
+        if inspect.isclass(obj) and not hasattr(obj, "_fields"):
+            for m, v in vars(obj).items():
+                if (m == "__init__" or not m.startswith("_")) and \
+                        not isinstance(v, property) and callable(
+                            getattr(obj, m)):
+                    yield f"{n}.{m}", getattr(obj, m)
+
+
+def test_every_jax_parameter_list_starts_the_port_s():
+    """For every public function, class and method of the JAX package,
+    JAX's parameter list (names, order, defaults) is the start of the
+    port's, apart from RENAMED; the port's own parameters come after it.
+    Where JAX has no default the port may have one: every JAX call passes
+    that argument."""
+    import importlib
+    bad, used = [], set()
+    for mod, names in sorted(public_names("pcseg_tpu").items()):
+        skip = NOT_PORTED.get(mod, set())
+        if skip == "*":
+            continue
+        jax_mod = importlib.import_module(f"pcseg_tpu.{mod}")
+        port_mod = importlib.import_module(f"pcseg_tpu_torch.{mod}")
+        port_objs = dict(public_callables(port_mod, names - skip))
+        for qual, obj in public_callables(jax_mod, names - skip):
+            if qual not in port_objs:
+                bad.append(f"{mod}.{qual}: missing")
+                continue
+            try:
+                want = _params(obj)
+            except (TypeError, ValueError):
+                continue  # no signature (a builtin)
+            got = _params(port_objs[qual])
+            renamed, _ = RENAMED.get(f"{mod}.{qual}", ({}, ""))
+            if renamed:
+                used.add(f"{mod}.{qual}")
+            if renamed == "*":
+                continue
+            want = [renamed.get(p, p) for p in want]
+            want = [p for p in want if p is not None]
+            ok = len(got) >= len(want) and all(
+                g == w or (g.split("=")[0] == w and "=" not in w)
+                for g, w in zip(got, want))
+            if not ok:
+                bad.append(f"{mod}.{qual}: JAX {want}, port {got}")
+    assert bad == []
+    assert used == set(RENAMED)  # no stale row
+    assert all(why for _, why in RENAMED.values())
 
 
 # -- on the card -------------------------------------------------------------
