@@ -172,7 +172,15 @@ final result line):
      CONVENTION_SCHEDULE (flood cap 4, which must bind on some frame),
      counted (B1 at 32 slots, B3 at 64) and equal to its plain run; the
      single-frame CCL scan counted (one B2 launch) and equal to its plain
-     run; the times beside the card.
+     run; the times beside the card;
+ 29. the input rule of every public op (``inputs_phase``) on the same
+     frames (the sequential grower and the mean shift at 120x160): a NumPy
+     frame raises the TypeError that names the argument; f64/i64 tensors
+     on the card give the f32/i32 call's result bitwise, the growers at
+     32 (B1) and 64 (B3) slots and the single-frame CCL scan (B2) counted;
+     the growers' f64 calls (kernel path) equal their f32 plain runs in
+     every field, centroids, curvatures and moments bitwise; each call's
+     ms beside the card.
 
 On one card the run prints that phases 25 and 26 need two or more cards,
 with the ``--nccl`` command, and goes on.
@@ -1072,6 +1080,8 @@ def main():
         read_counts)
     conv_launches, conv_times = conventions_phase(
         torch, card, dev, scenes, rays, origin, reset_counts, read_counts)
+    in_launches, in_times = inputs_phase(
+        torch, card, dev, scenes, rays, origin, reset_counts, read_counts)
 
     # kernels line: bounds from this run's inputs
     px_b1 = eargs[0].numel()
@@ -1094,7 +1104,10 @@ def main():
                  "epoch_word"],
              launches_single_frame_schedule={
                  s: conv_launches[f"{s}_grower_k32_schedule"]["epoch_word"]
-                 for s in scenes}),
+                 for s in scenes},
+             launches_f64_inputs={
+                 s: in_launches[f"{s}_grow_planar_regions_batched_k32"][
+                     "epoch_word"] for s in scenes}),
         dict(name="ccl_gated", route="cuda",
              source="pcseg_tpu_torch/csrc/ccl_gated.cu",
              replaces="pcseg_tpu/ops/connectivity.py:296",
@@ -1107,6 +1120,9 @@ def main():
              launches_single_frame_scan={
                  s: conv_launches[f"{s}_ccl_scan"]["ccl_gated"]
                  for s in scenes},
+             launches_f64_inputs_scan={
+                 s: in_launches[f"{s}_connected_components_scan"][
+                     "ccl_gated"] for s in scenes},
              voxel_grid=voxel_b2,
              launches_sharded_per_rank={
                  n: {s: [c[0] for c in per] for s, per in v.items()}
@@ -1125,6 +1141,9 @@ def main():
              launches_single_frame_schedule={
                  s: conv_launches[f"{s}_grower_k64_schedule"]["flood_packed"]
                  for s in scenes},
+             launches_f64_inputs={
+                 s: in_launches[f"{s}_grow_planar_regions_batched_k64"][
+                     "flood_packed"] for s in scenes},
              launches_sharded_per_rank={
                  n: {s: [c[1] for c in per] for s, per in v.items()}
                  for n, v in sharded_launches.items()},
@@ -1137,6 +1156,7 @@ def main():
     emit("times_sharded", card=card, **sharded_times)
     emit("times_surface", card=card, **surface_times)
     emit("times_conventions", card=card, **conv_times)
+    emit("times_inputs", card=card, **in_times)
     print(json.dumps({"kernels": kernels}), flush=True)
     result_line(torch)
 
@@ -2044,6 +2064,31 @@ def surface_phase(torch, card, dev, scenes, rays, origin, stream,
         times
 
 
+def compare_bitwise(torch, bad, name, got, want):
+    """Bitwise equality (NaN equal NaN, equal shapes and dtypes) of tensors
+    or (Named)tuples of them, None fields equal to None; appends the name
+    of each field that differs to ``bad`` and returns {name: max |got -
+    want|} of the float fields."""
+    out = {}
+    if isinstance(got, tuple):
+        for f, g, w in zip(getattr(got, "_fields", range(len(got))), got,
+                           want):
+            out.update(compare_bitwise(torch, bad, f"{name}.{f}", g, w))
+    elif got is None or want is None:
+        if got is not want:
+            bad.append(name)
+    elif got.shape != want.shape or got.dtype != want.dtype:
+        bad.append(f"{name} {tuple(got.shape)} {got.dtype}")
+    elif got.is_floating_point():
+        d = (got - want).abs().nan_to_num(0.0)
+        out[name] = float(d.max()) if d.numel() else 0.0
+        if not bool(((got == want) | (got.isnan() & want.isnan())).all()):
+            bad.append(name)
+    elif not torch.equal(got, want):
+        bad.append(name)
+    return out
+
+
 # phase 28's grower schedule: a binding flood cap, no unboxed closure
 # epochs past the final one, stage A as 26 generations of one ring, and an
 # id offset (tests/test_torch_jax_conventions.py holds it to JAX)
@@ -2076,23 +2121,7 @@ def conventions_phase(torch, card, dev, scenes, rays, origin, reset_counts,
     cfg = config.SegmenterConfig()
 
     def same(name, got, want):
-        """Bitwise equality of tensors or NamedTuples of tensors (None
-        fields equal None)."""
-        if isinstance(got, tuple):
-            for f, g, w in zip(getattr(got, "_fields", range(len(got))),
-                               got, want):
-                same(f"{name}.{f}", g, w)
-        elif got is None or want is None:
-            if got is not want:
-                bad.append(name)
-        elif got.shape != want.shape or got.dtype != want.dtype:
-            bad.append(name)
-        elif got.is_floating_point():
-            if not bool(((got == want) | (got.isnan() & want.isnan()))
-                        .all()):
-                bad.append(name)
-        elif not torch.equal(got, want):
-            bad.append(name)
+        compare_bitwise(torch, bad, name, got, want)
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -2261,6 +2290,243 @@ def conventions_phase(torch, card, dev, scenes, rays, origin, reset_counts,
     if not binds_any:
         fail("phase 28: flood_rounds=4 bound on no frame; the schedule "
              "comparison needs a binding cap")
+    return launches, times
+
+
+def widen(torch, x):
+    """``x`` with every f32 tensor in f64 and every i32 tensor in i64, in
+    (Named)tuples and geom.Pose too: the 64-bit twin of a call's input."""
+    from pcseg_tpu_torch.ops import geom
+    wide = {torch.float32: torch.float64, torch.int32: torch.int64}
+    if torch.is_tensor(x):
+        return x.to(wide.get(x.dtype, x.dtype))
+    if isinstance(x, geom.Pose):
+        return geom.Pose(widen(torch, x.quat), widen(torch, x.trans))
+    if isinstance(x, tuple):
+        items = [widen(torch, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def first_as_numpy(torch, fn, args):
+    """``args`` with the first tensor argument (the first tensor field of a
+    NamedTuple argument) moved to a NumPy array on the host, and the name
+    the input rule must give it."""
+    import inspect
+    names = list(inspect.signature(fn).parameters)
+    args = list(args)
+    for i, a in enumerate(args):
+        if torch.is_tensor(a):
+            args[i] = a.cpu().numpy()
+            return args, names[i]
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            for f, v in zip(a._fields, a):
+                if torch.is_tensor(v):
+                    args[i] = a._replace(**{f: v.cpu().numpy()})
+                    return args, f"{names[i]}.{f}"
+    raise ValueError(f"{fn.__name__}: no tensor argument")
+
+
+def inputs_phase(torch, card, dev, scenes, rays, origin, reset_counts,
+                 read_counts):
+    """Phase 29: the input rule of every public op on the card, on one
+    unjittered VGA frame of each scene (the sequential grower and the mean
+    shift at 120x160). Each function given a NumPy frame raises the
+    TypeError that names the argument; given f64/i64 tensors on the card
+    it returns its f32/i32 call's result bitwise, the growers at 32 (B1)
+    and 64 (B3) slots and the single-frame CCL scan (B2) counted. The
+    growers' f64 calls (kernel path) also equal their f32 plain runs in
+    every field: centroids, curvatures and moments bitwise (the kernels
+    keep the f64 moment order). Returns ({call: launches}, times)."""
+    from pcseg_tpu_torch.models import (cluster, config, mean_shift, planar,
+                                        planar_batched)
+    from pcseg_tpu_torch.ops import (connectivity, discontinuity, geom,
+                                     nansafe, normals, seeds, unproject,
+                                     voxelize)
+
+    t_start = time.perf_counter()
+    launches, times, bad = {}, {}, []
+    origin_d = torch.from_numpy(origin).to(dev)
+    cfg = config.SegmenterConfig()
+    mh, mw = MS_DEVICE_SHAPE
+
+    def diff(name, got, want):
+        return compare_bitwise(torch, bad, name, got, want)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e), read_counts()
+
+    for scene, u16 in scenes.items():
+        pts = torch.from_numpy(unproject.unproject_range_np(u16, rays)) \
+            .to(dev)
+        nrm = normals.compute_normals_organized(pts, origin_d, cfg.normals)
+        support = normals.find_normal_support(pts, cfg.normals)
+        sp = cfg.plane_support_seeds
+        count, ok = seeds.plane_support_counts(pts, nrm, sp)
+        qual = ok & (count >= sp.min_num_support_points)
+        ranked = seeds.seeds_from_plane_support(pts, nrm, sp,
+                                                seed_vector=True)
+        avg = seeds.seeds_from_average_normals(nrm)
+        labels0 = torch.full((H, W), config.UNLABELED, dtype=torch.int32,
+                             device=dev)
+        elig = nansafe.all_finite(pts)
+        thr = cfg.cluster.squared_distance_threshold
+        half = cfg.cluster.half_search_window
+        roots = connectivity.connected_components_scan(pts, elig, thr, half)
+        cells = ranked.indices[-6:].long()
+        flat_p = pts.transpose(0, 1).reshape(-1, 3)
+        flat_n = nrm.transpose(0, 1).reshape(-1, 3)
+        pose = geom.Pose(torch.tensor([0.999, 0.02, -0.01, 0.03],
+                                      device=dev) / 0.99975,
+                         torch.tensor([0.05, -0.02, 0.01], device=dev))
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        gate = (torch.rand((3, H, W), generator=gen) < 0.6).to(dev)
+        src = gate & (torch.rand((3, H, W), generator=gen) < 0.001).to(dev)
+        mpts = pts[::H // mh, ::W // mw].contiguous()
+        mnrm = nrm[::H // mh, ::W // mw].contiguous()
+        mlab = torch.full((mh, mw), config.UNLABELED, dtype=torch.int32,
+                          device=dev)
+        m_ranked = seeds.seeds_from_plane_support(mpts, mnrm, sp,
+                                                  seed_vector=True)
+        vox = pts.reshape(-1, 3)
+        grid = voxelize.voxelize_xy(vox, 0.1, (128, 128))
+        calls = {
+            "compute_normals_organized": (
+                normals.compute_normals_organized, (pts, origin_d,
+                                                    cfg.normals)),
+            "find_normal_support": (normals.find_normal_support,
+                                    (pts, cfg.normals)),
+            "normals_from_support": (normals.normals_from_support,
+                                     (support, pts, origin_d, cfg.normals)),
+            "plane_support_counts": (seeds.plane_support_counts,
+                                     (pts, nrm, sp)),
+            "plane_support_rank_grid": (
+                seeds.plane_support_rank_grid,
+                (count, qual, H, W, sp.neighborhood_size ** 2 + 1)),
+            "rank_plane_support_seeds": (seeds.rank_plane_support_seeds,
+                                         (count, qual, H, W, sp.max_seeds)),
+            "seeds_from_plane_support": (seeds.seeds_from_plane_support,
+                                         (pts, nrm, sp, True, True)),
+            "seeds_from_average_normals": (seeds.seeds_from_average_normals,
+                                           (nrm,)),
+            "average_normal_seed_list": (seeds.average_normal_seed_list,
+                                         (avg, 4096)),
+            "append_temporal_to_rank_grid": (
+                seeds.append_temporal_to_rank_grid,
+                (ranked.rank_grid, ranked.indices[-5:], ranked.valid[-5:])),
+            "seeds_from_last_regions": (
+                seeds.seeds_from_last_regions,
+                (pts, nrm, flat_p[cells].nan_to_num(), flat_n[cells]
+                 .nan_to_num(1.0), torch.arange(6, dtype=torch.int32,
+                                                device=dev) * 50,
+                 torch.ones(6, dtype=torch.bool, device=dev), pose, 0.3,
+                 0.35)),
+            "connected_components_scan": (
+                connectivity.connected_components_scan,
+                (pts, elig, thr, half)),
+            "connected_components_window": (
+                connectivity.connected_components_window,
+                (pts, elig, thr, half)),
+            "connected_components_mask": (
+                connectivity.connected_components_mask, (elig,)),
+            # int32 sums, as the cluster stage's sizes (a float sum on the
+            # card adds by atomics in no fixed order), and the f32 min
+            "segment_field": (connectivity.segment_field,
+                              (roots % 97, roots, elig, H, W)),
+            "segment_field_min_f32": (
+                connectivity.segment_field,
+                (pts[..., 2], roots, elig, H, W, "min")),
+            "reachable_from": (connectivity.reachable_from,
+                               (gate, src, 64)),
+            "discontinuity_flags": (
+                discontinuity.discontinuity_flags,
+                (pts, nrm, torch.where(elig, torch.arange(
+                    W, device=dev, dtype=torch.int32)[None, :] // 160,
+                    config.UNLABELED), torch.eye(3, device=dev),
+                 cfg.planar)),
+            "segment_clusters": (cluster.segment_clusters,
+                                 (pts, labels0, None, cfg.cluster, 0, None,
+                                  True)),
+            "mean_shift_modes": (mean_shift.mean_shift_modes,
+                                 (mpts, mlab, 5)),
+            "rank_grid_from_seed_vector": (
+                planar_batched.rank_grid_from_seed_vector,
+                (ranked.indices, ranked.valid, H, W)),
+            "flood_fill_static": (planar_batched.flood_fill_static,
+                                  (gate, src, 4)),
+            **{f"grow_planar_regions_batched_k{k}": (
+                planar_batched.grow_planar_regions_batched,
+                (pts, nrm, labels0, ranked.indices, ranked.valid,
+                 config.PlanarRegionConfig(max_regions=k)))
+               for k in (32, 64)},
+            "grow_planar_regions": (
+                planar.grow_planar_regions,
+                (mpts, mnrm, mlab, m_ranked.indices, m_ranked.valid,
+                 config.PlanarRegionConfig(growth_mode="wavefront"))),
+            "voxelize_xy": (voxelize.voxelize_xy, (vox, 0.1, (128, 128))),
+            "cell_ids": (voxelize.cell_ids, (vox, 0.1, (128, 128))),
+            "scatter_labels_to_points": (
+                voxelize.scatter_labels_to_points,
+                (torch.arange(128 * 128, device=dev, dtype=torch.int32)
+                 .reshape(128, 128), grid.point_cell)),
+        }
+        errs = {}
+        for name, (fn, args) in calls.items():
+            np_args, arg = first_as_numpy(torch, fn, args)
+            want_msg = (f"{fn.__name__}: {arg} must be a torch.Tensor on "
+                        f"the device to run on, got numpy.ndarray")
+            try:
+                fn(*np_args)
+                bad.append(f"{scene}.{name} took a NumPy {arg}")
+            except TypeError as e:
+                if str(e) != want_msg:
+                    bad.append(f"{scene}.{name}: {e}")
+            got32, ms32, n32 = timed(lambda: fn(*args))
+            got64, ms64, n64 = timed(lambda: fn(*widen(torch, args)))
+            errs.update(diff(f"{scene}.{name}", got64, got32))
+            times[f"{scene}_{name}_ms"] = ms64
+            times[f"{scene}_{name}_f32_ms"] = ms32
+            launches[f"{scene}_{name}"] = n64
+            if n64 != n32:
+                bad.append(f"{scene}.{name} launches {n64} against {n32}")
+        for k, kernel in ((32, "epoch_word"), (64, "flood_packed")):
+            n = launches[f"{scene}_grow_planar_regions_batched_k{k}"]
+            if n[kernel] <= 0:
+                bad.append(f"{scene}.grower_k{k} launched no {kernel}: {n}")
+            fn, args = calls[f"grow_planar_regions_batched_k{k}"]
+            got = fn(*widen(torch, args))
+            plain = fn(*args, impl="plain")
+            table = diff(f"{scene}.grower_k{k}_vs_plain", got, plain)
+            emit("inputs_grower", card=card, scene=scene, slots=k,
+                 launches=n, num_regions=int(got.num_regions),
+                 ms=times[f"{scene}_grow_planar_regions_batched_k{k}_ms"],
+                 max_abs_vs_plain={f.split(".", 2)[2]: v
+                                   for f, v in table.items()
+                                   if any(t in f for t in (
+                                       "centroids", "curvatures",
+                                       "moments"))})
+        n = launches[f"{scene}_connected_components_scan"]
+        if n != dict(epoch_word=0, ccl_gated=1, flood_packed=0):
+            bad.append(f"{scene}.ccl_scan launches {n}")
+        emit("inputs_frame", card=card, scene=scene, functions=len(calls),
+             launches={k: v for k, v in launches.items()
+                       if k.startswith(scene) and any(v.values())},
+             ms={k[len(scene) + 1:]: v for k, v in times.items()
+                 if k.startswith(scene) and not k.endswith("_f32_ms")},
+             max_abs_f64_vs_f32=max(errs.values()), mismatches=bad)
+    times["phase_29_seconds"] = time.perf_counter() - t_start
+    emit("inputs", card=card, launches={
+        k: v for k, v in launches.items() if any(v.values())},
+        mismatches=bad, seconds=times["phase_29_seconds"])
+    if bad:
+        fail(f"phase 29: {bad}")
     return launches, times
 
 

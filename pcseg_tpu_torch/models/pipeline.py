@@ -53,7 +53,7 @@ class FrameResult:
     # None: the normals stay on the device (the discontinuity stencil, their
     # only host consumer, runs there)
     normals: Optional[np.ndarray]
-    planar_regions: List               # boundary.PlanarRegionRecord
+    planar_regions: List[boundary.PlanarRegionRecord]
     num_clusters: int
     cluster_sizes: np.ndarray
     objects: List[extract.DetectedObject]

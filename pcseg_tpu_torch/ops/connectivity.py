@@ -199,6 +199,7 @@ def connected_components_mask(mask, max_iters=64, num_jumps=2,
     return labels
 
 
+@takes_frames()
 def reachable_from(mask, sources, max_rounds=64):
     """Cells of the bool ``mask`` [..., H, W] 4-connected to a cell of
     ``sources`` (JAX's ``reachable_from``, the sequential grower's epoch

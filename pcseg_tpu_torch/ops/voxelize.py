@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from pcseg_tpu_torch.ops import nansafe
+from pcseg_tpu_torch.ops.frames import takes_frames
 
 
 class VoxelGrid(NamedTuple):
@@ -43,6 +44,7 @@ class VoxelGrid(NamedTuple):
     cell_size: torch.Tensor    # scalar
 
 
+@takes_frames()
 def cell_ids(points: torch.Tensor, cell_size: float, grid_shape, origin=None):
     """(cell [N] int64 row-major id, gx*gy off the grid; in-grid [N] bool;
     zeroed points [N, 3]; origin [2] f32) of an [N, 3] f32 cloud.
@@ -101,6 +103,7 @@ def _cell_means_tree(pts, cell, inb, counts):
     return torch.where(cnt[:, None] > 0, means, float("nan"))
 
 
+@takes_frames()
 def voxelize_xy(points: torch.Tensor, cell_size: float, grid_shape,
                 origin=None) -> VoxelGrid:
     """Scatter an unorganized [N, 3] f32 cloud into a [Gx, Gy] XY grid of
@@ -129,6 +132,7 @@ def voxelize_xy(points: torch.Tensor, cell_size: float, grid_shape,
                                             device=points.device))
 
 
+@takes_frames()
 def scatter_labels_to_points(grid_labels: torch.Tensor,
                              point_cell: torch.Tensor,
                              fill=-1) -> torch.Tensor:

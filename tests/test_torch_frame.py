@@ -21,7 +21,7 @@ from pcseg_tpu.ops import unproject as junproject
 from pcseg_tpu.utils.synthetic import synthetic_cluttered_room_cloud
 
 from pcseg_tpu_torch.models import config, pipeline
-from tests.test_torch_grower import plane_tolerance
+from tests.test_torch_grower import plane_tolerance, region_bars
 
 # One intra-op thread: the suite runs in parallel worker processes, and
 # OpenMP teams spinning across them slow every small op by orders of
@@ -67,11 +67,53 @@ def assert_arrays_equal(got, want, points):
                                        atol=tol, err_msg=f"{key} {r}")
 
 
+def polygon_tolerance(points):
+    """The in-plane hull of a region's boundary, projected onto its plane:
+    a plane within ``plane_tolerance`` moves a projected point by about
+    that times (1 + |p|)."""
+    return plane_tolerance(points) * (1 + np.linalg.norm(points, axis=-1)
+                                      .max())
+
+
+def assert_polygon_equal(got, want, tol, msg):
+    """The same hull within ``tol``, from any start vertex: the hull
+    starts at its extreme vertex in the plane's 2-D frame, and on a wall
+    whose boundary cells tie there an ulp of the projection picks the
+    start (the room's back wall at 128x160)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, msg
+    if len(want) == 0:
+        return
+    shift = int(np.argmin(np.abs(got - want[0]).max(-1)))
+    np.testing.assert_allclose(np.roll(got, -shift, axis=0), want, rtol=0,
+                               atol=tol, err_msg=msg)
+
+
+def assert_records_equal(got, want, points, labels):
+    """The record fields that ``frame_arrays`` leaves out: the label id
+    (exact), the curvature (tests/test_torch_grower.region_bars) and the
+    projected hull (:func:`polygon_tolerance`)."""
+    assert len(got) == len(want)
+    for r, (a, b) in enumerate(zip(got, want)):
+        assert a.label_id == b.label_id
+        pts = points[labels == b.label_id]
+        assert abs(a.curvature - b.curvature) <= \
+            region_bars(pts)["curvatures"], f"curvature {r}"
+        assert_polygon_equal(a.projected_boundary_points,
+                             b.projected_boundary_points,
+                             polygon_tolerance(pts), f"polygon {r}")
+
+
 def assert_frame_equal(got, want, points):
-    """Two FrameResults (the port's, JAX's): the flat arrays, the
-    classification summary and every detected object."""
+    """Two FrameResults (the port's, JAX's): the flat arrays, the records'
+    other fields, the classification summary and every detected object
+    (a planar object's plane and centroid to the plane tolerance of its
+    points). ``normals`` is None in both (FrameResult's comment)."""
     assert_arrays_equal(pipeline.frame_arrays(got),
                         pipeline.frame_arrays(want), points)
+    assert_records_equal(got.planar_regions, want.planar_regions, points,
+                         np.asarray(want.labels))
+    assert got.normals is None and want.normals is None
     assert dataclasses.asdict(got.classification_summary) == \
         dataclasses.asdict(want.classification_summary)
     assert got.num_clusters == want.num_clusters
@@ -83,6 +125,13 @@ def assert_frame_equal(got, want, points):
             np.testing.assert_array_equal(
                 a.discontinuous_boundary_positions,
                 b.discontinuous_boundary_positions)
+            tol = plane_tolerance(b.points)
+            np.testing.assert_allclose(a.plane, b.plane, rtol=0, atol=tol)
+            np.testing.assert_allclose(a.centroid, b.centroid, rtol=0,
+                                       atol=tol)
+        else:
+            assert a.plane is None and a.centroid is None and \
+                a.discontinuous_boundary_positions is None
 
 
 @pytest.fixture(scope="module")

@@ -57,7 +57,8 @@ from pcseg_tpu_torch.ops import (connectivity, discontinuity, geom, normals,
                                  plane_fit, seeds)
 from pcseg_tpu_torch.parallel import halo, sharded
 from tests.test_mean_shift import blob_cloud
-from tests.test_torch_grower import assert_planes
+from tests.test_torch_grower import (assert_planes, assert_region_table,
+                                     region_table)
 
 # One intra-op thread: the suite runs in parallel worker processes, and
 # OpenMP teams spinning across them slow every small op by orders of
@@ -67,6 +68,8 @@ torch.set_num_threads(1)
 UNLABELED = config.UNLABELED
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "pcseg_tpu_torch", "testdata", "jax_conventions_128x160.npz")
+# the region table of the same JAX runs (centroids, curvatures, moments)
+GOLDEN_TABLE = GOLDEN.replace("128x160", "table_128x160")
 # the non-default schedules: a binding flood cap (2 rounds; the flood needs
 # more on both scenes), an id offset, other stage-A splits and closure
 # counts; (26, 1) and (9, 3) both leave room for the 64x64 patches
@@ -76,6 +79,8 @@ SCHEDULE_128X160 = dict(initial_id_offset=5, stage_a_gens=9, stage_a_rings=3,
                         closure_epochs=1, flood_rounds=2)
 GROWER_FIELDS = ("labels", "num_regions", "counts", "seed_indices",
                  "overflow")
+# the region table against JAX: tests/test_torch_grower.region_bars
+TABLE_FIELDS = ("centroids", "curvatures", "s2", "s1", "w", "normal_hint")
 
 
 def _t(x):
@@ -210,8 +215,13 @@ def test_normals_single_frame():
     support = normals.find_normal_support(_t(pts), params)
     j_support = jnormals.find_normal_support(
         jnp.asarray(pts), jnormals.ComputeNormalsParams())
-    np.testing.assert_array_equal(support.count.numpy(),
-                                  _np(j_support.count))
+    for f in ("count", "center_valid"):  # and every moment field, exact
+        np.testing.assert_array_equal(getattr(support, f).numpy(),
+                                      _np(getattr(j_support, f)), err_msg=f)
+    for f in plane_fit.PlaneMoments._fields:
+        np.testing.assert_array_equal(getattr(support.moments, f).numpy(),
+                                      _np(getattr(j_support.moments, f)),
+                                      err_msg=f)
     np.testing.assert_array_equal(normals.normals_from_support(
         support, _t(pts), _t(origin), params).numpy(), got)
 
@@ -377,16 +387,34 @@ def port_grow(pts, nrm, idx, valid, k, **kw):
 
 def assert_grower_equal(got, want, pts, offset):
     """Exact labels, counts, seeds and overflow; planes to the grower
-    tests' tolerance (region r holds the cells labelled r + ``offset``)."""
+    tests' tolerance; centroids, curvatures and moments to their bars
+    (tests/test_torch_grower.region_bars; region r holds the cells
+    labelled r + ``offset``)."""
     for f in GROWER_FIELDS:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
-    assert_planes(got["planes"][None], want["planes"][None],
-                  got["labels"][None] - offset, pts[None],
-                  want["num_regions"][None])
+    labels = got["labels"][None] - offset
+    num = want["num_regions"][None]
+    assert_planes(got["planes"][None], want["planes"][None], labels,
+                  pts[None], num)
+    assert_region_table({f: got[f][None] for f in TABLE_FIELDS},
+                        {f: want[f][None] for f in TABLE_FIELDS}, labels,
+                        pts[None], num)
 
 
 def as_dict(res):
-    return {f: _np(getattr(res, f)) for f in GROWER_FIELDS + ("planes",)}
+    return dict({f: _np(getattr(res, f)) for f in GROWER_FIELDS
+                 + ("planes",)}, **region_table(res))
+
+
+def assert_same_regions(got, want, batched=None):
+    """Two port results equal in every field (frame 0 of ``batched``
+    equal to ``got``)."""
+    a, b = as_dict(got), as_dict(want)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+        if batched is not None:
+            np.testing.assert_array_equal(as_dict(batched)[f][0], a[f],
+                                          err_msg=f)
 
 
 def test_grower_schedule_matches_jax():
@@ -437,11 +465,7 @@ def test_grower_seed_vector_equals_rank_grid(k):
         torch.full((1, 40, 56), UNLABELED, dtype=torch.int32),
         _t(idx)[None], _t(valid)[None],
         config.PlanarRegionConfig(max_regions=k))
-    for f in GROWER_FIELDS + ("planes",):
-        np.testing.assert_array_equal(getattr(got, f).numpy(),
-                                      getattr(by_grid, f).numpy(), err_msg=f)
-        np.testing.assert_array_equal(getattr(batched, f)[0].numpy(),
-                                      getattr(got, f).numpy(), err_msg=f)
+    assert_same_regions(got, by_grid, batched)
     assert int(got.num_regions) >= 5
 
 
@@ -487,12 +511,21 @@ def jax_golden():
     return out
 
 
+def golden_files():
+    """The committed goldens as one dict (the table in its own file)."""
+    out = {}
+    for path in (GOLDEN, GOLDEN_TABLE):
+        with np.load(path) as gold:
+            out.update({name: gold[name] for name in gold.files})
+    return out
+
+
 @pytest.mark.parametrize("k", [32, 64])
 def test_grower_schedule_matches_jax_golden_128x160(k):
-    gold = np.load(GOLDEN)
+    gold = golden_files()
     pts, nrm, idx, valid = golden_input()
     got = as_dict(port_grow(pts, nrm, idx, valid, k, **SCHEDULE_128X160))
-    want = {f: gold[f"k{k}_{f}"] for f in GROWER_FIELDS + ("planes",)}
+    want = {f: gold[f"k{k}_{f}"] for f in got}
     assert_grower_equal(got, want, pts, SCHEDULE_128X160["initial_id_offset"])
     assert int(want["num_regions"]) >= 6
     free = port_grow(pts, nrm, idx, valid, k,
@@ -501,9 +534,9 @@ def test_grower_schedule_matches_jax_golden_128x160(k):
 
 
 def test_committed_golden_is_current():
-    gold = np.load(GOLDEN)
+    gold = golden_files()
     want = jax_golden()
-    assert set(gold.files) == set(want)
+    assert set(gold) == set(want)
     for name, value in want.items():
         np.testing.assert_array_equal(gold[name], value, err_msg=name)
 
@@ -526,9 +559,7 @@ def test_sharded_grower_passes_grower_kwargs():
     want = port_grow(pts, nrm, idx, valid, cfg.max_regions,
                      initial_id_offset=offset, **schedule)
     assert int(got.labels.max()) >= offset
-    for f in GROWER_FIELDS:
-        np.testing.assert_array_equal(getattr(got, f).numpy(),
-                                      getattr(want, f).numpy(), err_msg=f)
+    assert_same_regions(got, want)
 
 
 # -- clusters, mean shift, the sequential grower ------------------------------
@@ -601,9 +632,16 @@ def test_sequential_grower_single_frame():
     for f in GROWER_FIELDS:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       _np(getattr(want, f)), err_msg=f)
+    num = _np(want.num_regions)[None]
+    assert_region_table({f: v[None] for f, v in region_table(got).items()},
+                        {f: v[None] for f, v in region_table(want).items()},
+                        got.labels.numpy()[None] - 4, pts[None], num)
     assert int(got.num_regions) >= 2
 
 
 if __name__ == "__main__":
-    np.savez_compressed(GOLDEN, **jax_golden())
-    print("wrote", GOLDEN, os.path.getsize(GOLDEN), "bytes")
+    gold = jax_golden()
+    table = {f"k{k}_{f}" for k in (32, 64) for f in TABLE_FIELDS}
+    for path, names in ((GOLDEN, set(gold) - table), (GOLDEN_TABLE, table)):
+        np.savez_compressed(path, **{n: gold[n] for n in sorted(names)})
+        print("wrote", path, os.path.getsize(path), "bytes")

@@ -23,7 +23,8 @@ from pcseg_tpu.ops import seeds as jseeds
 from pcseg_tpu_torch.models import config, pipeline, planar
 from pcseg_tpu_torch.ops import connectivity, seeds
 from tests import fixtures
-from tests.test_torch_grower import plane_tolerance
+from tests.test_torch_grower import (assert_region_table, plane_tolerance,
+                                     region_table)
 from tests.test_torch_kernels import _t, cuda_device  # noqa: F401
 
 torch.set_num_threads(1)
@@ -148,6 +149,12 @@ def assert_regions_equal(got, want, pts, offset=0):
                                        rtol=0, atol=tol, err_msg=f"{f} {r}")
     np.testing.assert_allclose(got.moments.w[0].numpy(),
                                np.asarray(want.moments.w), rtol=0, atol=0)
+    # curvatures and moments (and the centroids again) to the batched
+    # grower's bars, tests/test_torch_grower.region_bars
+    assert_region_table(region_table(got),
+                        {f: v[None] for f, v in region_table(want).items()},
+                        labels[None] - offset, pts[None],
+                        np.asarray(want.num_regions)[None])
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))

@@ -614,6 +614,194 @@ def test_every_jax_parameter_list_starts_the_port_s():
     assert all(why for _, why in RENAMED.values())
 
 
+# -- the field-by-field comparison ----------------------------------------------
+
+# Every field of every public result type, with the tests that hold it to
+# JAX and its bar: "exact", a named tolerance ("file::name"), another bar
+# in words, or "not compared: <why>". A nested result (a NamedTuple or a
+# dataclass field, or a list of them) is listed field by field.
+# PlanarRegions is the result of both growers (models/planar.py returns
+# the batched grower's type), tested each in its own case.
+_G = "tests/test_torch_grower.py::"
+_C = "tests/test_torch_jax_conventions.py::"
+_F = "tests/test_torch_frame.py::"
+_MS = "tests/test_torch_mean_shift.py::"
+_U = "tests/test_torch_unorganized.py::"
+GROWERS = (_G + "test_grower_matches_jax",
+           _C + "test_grower_schedule_matches_jax",
+           _C + "test_grower_schedule_matches_jax_golden_128x160",
+           "tests/test_torch_planar_seq.py::test_grower_matches_jax",
+           _C + "test_sequential_grower_single_frame")
+SHARDED = ("tests/test_torch_sharded_grow.py::test_sharded_growers_match_jax",
+           "tests/test_torch_sharded_grow.py::"
+           "test_sharded_grower_under_a_binding_cap_matches_jax")
+REGION_BARS = _G + "region_bars"
+SOLVE = ("tests/test_torch_ops.py::test_plane_fit_solve",)
+FRAME = (_F + "test_frame_matches_jax",)
+EXACT_FRAME = "exact (frame_arrays)"
+FIELD_TABLE = {
+    **{f"PlanarRegions.{f}": (GROWERS + SHARDED, "exact")
+       for f in ("labels", "num_regions", "counts", "seed_indices",
+                 "overflow")},
+    "PlanarRegions.planes": (GROWERS + SHARDED, _G + "plane_tolerance"),
+    **{f"PlanarRegions.{f}": (GROWERS, REGION_BARS)
+       for f in ("centroids", "curvatures", "moments.s2", "moments.s1",
+                 "moments.w", "moments.normal_hint")},
+    "PlaneSolution.plane": (SOLVE, "rtol 1e-6, atol 1e-5 off the FLT_MIN "
+                                   "validity edge"),
+    "PlaneSolution.normal": (SOLVE, "rtol 1e-6, atol 1e-5 off the edge"),
+    "PlaneSolution.centroid": (SOLVE, "rtol 1e-6, atol 1e-6"),
+    "PlaneSolution.curvature": (SOLVE, "rtol 1e-4, atol 1e-6 off the edge"),
+    "PlaneSolution.mid_ratio": (SOLVE, "rtol 1e-4, atol 1e-6 off the edge"),
+    "PlaneSolution.valid": (SOLVE, "exact off the edge"),
+    **{f"RankedSeeds.{f}": ((_C + "test_plane_support_seeds_single_frame",),
+                            "exact")
+       for f in ("indices", "valid", "count", "rank_grid")},
+    **{f"SeedMask.{f}": ((_C + "test_average_normal_seeds_single_frame",
+                          "tests/test_torch_avg_seeds.py::"
+                          "test_average_normal_seeds_match_jax"), "exact")
+       for f in ("mask", "seed_index", "score")},
+    **{f"NormalSupport.{f}": ((_C + "test_normals_single_frame",), "exact")
+       for f in ("count", "center_valid", "moments.s2", "moments.s1",
+                 "moments.w", "moments.normal_hint")},
+    **{f"ClusterResult.{f}": ((_C + "test_segment_clusters_single_frame",
+                               _MS + "test_segment_clusters_while_matches_jax"),
+                              "exact")
+       for f in ("labels", "num_regions", "region_sizes", "roots")},
+    **{f"MeanShiftState.{f}": ((_C + "test_mean_shift_single_frame",
+                                _MS + "test_mean_shift_modes_match_jax"),
+                               "exact")
+       for f in ("pos", "idx", "valid", "intensity", "is_seed")},
+    **{f"MeanShiftRegion.{f}": ((_MS + "test_growth_from_jax_modes_matches_jax",
+                                 _MS + "test_sliding_mean_shift_matches_jax"),
+                                "exact")
+       for f in ("label_id", "inlier_indices", "seed")},
+    **{f"FrameResult.{f}": (FRAME, EXACT_FRAME)
+       for f in ("labels", "cluster_sizes")},
+    "FrameResult.num_clusters": (FRAME, "exact"),
+    "FrameResult.normals": ((), "not compared: None in both packages (the "
+                                "normals stay on the device; the test "
+                                "asserts None)"),
+    **{f"FrameResult.metrics.{f}": (FRAME, EXACT_FRAME)
+       for f in pipeline.FrameMetrics._fields},
+    "FrameResult.classification_summary.total_considered": (FRAME, "exact"),
+    **{f"FrameResult.classification_summary.{side}.{f}": (FRAME, "exact")
+       for side in ("floor_rejections", "coffee_table_rejections")
+       for f in ("rejected_for_angle", "rejected_for_distance",
+                 "rejected_for_size")},
+    **{f"FrameResult.planar_regions.{f}": (FRAME, EXACT_FRAME)
+       for f in ("count", "seed_point_index", "boundary_indices",
+                 "discontinuous_boundary_indices", "plane_class")},
+    "FrameResult.planar_regions.label_id": (FRAME, "exact"),
+    "FrameResult.planar_regions.plane": (FRAME, _G + "plane_tolerance"),
+    "FrameResult.planar_regions.centroid": (FRAME, _G + "plane_tolerance"),
+    "FrameResult.planar_regions.curvature": (FRAME, REGION_BARS),
+    "FrameResult.planar_regions.area": (FRAME, _F + "AREA_RTOL"),
+    "FrameResult.planar_regions.projected_boundary_points": (
+        FRAME, _F + "polygon_tolerance"),
+    **{f"FrameResult.objects.{f}": (FRAME, "exact")
+       for f in ("object_class", "points",
+                 "discontinuous_boundary_positions")},
+    **{f"FrameResult.objects.{f}": (FRAME, _G + "plane_tolerance")
+       for f in ("centroid", "plane")},
+    **{f"UnorganizedClusterResult.{f}": (
+        (_U + "test_cluster_unorganized_matches_jax",), "exact")
+       for f in ("point_labels", "grid_labels", "num_regions",
+                 "region_sizes")},
+    **{f"VoxelGrid.{f}": ((_U + "test_voxelize_matches_jax",), "exact")
+       for f in ("counts", "point_cell", "origin", "cell_size")},
+    "VoxelGrid.points": ((_U + "test_voxelize_matches_jax",),
+                         "2 f32 ulps (JAX's f32 cell sums in point order)"),
+}
+
+
+def result_types():
+    """{name: class} of the public result types the table covers."""
+    from pcseg_tpu_torch.models import mean_shift, planar, unorganized
+    from pcseg_tpu_torch.ops import normals, plane_fit, seeds, voxelize
+    assert planar.PlanarRegions is planar_batched.PlanarRegions
+    return {c.__name__: c for c in (
+        planar_batched.PlanarRegions, plane_fit.PlaneSolution,
+        seeds.RankedSeeds, seeds.SeedMask, normals.NormalSupport,
+        cluster.ClusterResult, mean_shift.MeanShiftState,
+        mean_shift.MeanShiftRegion, pipeline.FrameResult,
+        unorganized.UnorganizedClusterResult, voxelize.VoxelGrid)}
+
+
+def field_paths(cls, prefix):
+    """Dotted paths of every field of a NamedTuple or dataclass, nested
+    results (and lists of them) expanded."""
+    import dataclasses
+    import typing
+    names = cls._fields if hasattr(cls, "_fields") else \
+        [f.name for f in dataclasses.fields(cls)]
+    hints = typing.get_type_hints(cls)
+    out = []
+    for name in names:
+        hint = hints.get(name)
+        if typing.get_origin(hint) in (list, typing.List):
+            hint = typing.get_args(hint)[0]
+        if isinstance(hint, type) and (hasattr(hint, "_fields") or
+                                       dataclasses.is_dataclass(hint)):
+            out += field_paths(hint, f"{prefix}{name}.")
+        else:
+            out.append(prefix + name)
+    return out
+
+
+def _defined(ref):
+    """Whether "file::name" names a top-level def or assignment there."""
+    path, name = ref.split("::")
+    full = os.path.join(ROOT, path)
+    if not os.path.exists(full):
+        return False
+    with open(full) as fh:
+        tree = ast.parse(fh.read())
+    return any(getattr(n, "name", None) == name or
+               any(getattr(t, "id", None) == name
+                   for t in getattr(n, "targets", ()))
+               for n in tree.body)
+
+
+def field_table_problems(table, types):
+    """What is wrong with ``table`` against the result ``types``: fields
+    with no row, rows of no field, tests or named bars that do not exist,
+    rows with no test that are not marked as not compared."""
+    fields = {p for name, cls in types.items()
+              for p in field_paths(cls, name + ".")}
+    problems = [f"no row: {f}" for f in sorted(fields - set(table))]
+    problems += [f"no such field: {f}" for f in sorted(set(table) - fields)]
+    for row, (tests, bar) in sorted(table.items()):
+        problems += [f"{row}: no test {t}" for t in tests if not _defined(t)]
+        if "::" in bar and not _defined(bar):
+            problems.append(f"{row}: no bar {bar}")
+        if not tests and not bar.startswith("not compared: "):
+            problems.append(f"{row}: no test")
+    return problems
+
+
+def test_every_field_of_every_public_result_is_compared():
+    """FIELD_TABLE lists every field of every public result type, each
+    with the tests that compare it against JAX and its bar."""
+    assert field_table_problems(FIELD_TABLE, result_types()) == []
+
+
+def test_field_table_check_finds_drift():
+    """The check above fails on a field with no row, on a row of no field
+    and on a test or bar that no longer exists."""
+    types = result_types()
+    table = dict(FIELD_TABLE)
+    del table["PlanarRegions.curvatures"]
+    table["PlanarRegions.flatness"] = table["PlanarRegions.labels"]
+    table["RankedSeeds.count"] = ((_C + "test_gone",), "exact")
+    table["VoxelGrid.points"] = (SOLVE, _G + "gone_tolerance")
+    assert field_table_problems(table, types) == [
+        "no row: PlanarRegions.curvatures",
+        "no such field: PlanarRegions.flatness",
+        f"RankedSeeds.count: no test {_C}test_gone",
+        f"VoxelGrid.points: no bar {_G}gone_tolerance"]
+
+
 # -- on the card -------------------------------------------------------------
 
 

@@ -95,6 +95,8 @@ def test_voxelize_matches_jax(case):
     np.testing.assert_array_equal(got.point_cell.numpy(),
                                   np.asarray(want.point_cell))
     np.testing.assert_array_equal(got.origin.numpy(), np.asarray(want.origin))
+    np.testing.assert_array_equal(got.cell_size.numpy(),
+                                  np.asarray(want.cell_size))
     assert ulps(got.points.numpy(), np.asarray(want.points)).max() <= 2
     # the NumPy copies agree exactly too
     np_got = voxelize.voxelize_xy_np(pts, cell, shape, origin)

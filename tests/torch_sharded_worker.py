@@ -144,6 +144,13 @@ def _suite(name, comm, data, res):
             torch.as_tensor(data["sq_seed_valid"]),
             PlanarRegionConfig(max_regions=16), h, w, comm,
             max_attempts=32))
+        if "cap_rounds" in data:  # the batched grower under a flood cap
+            region_table("cap_", sharded.sharded_grow_planar_regions_batched(
+                local("cap_pts"), local("cap_nrm"), lab0,
+                torch.as_tensor(data["cap_seed_idx"]),
+                torch.as_tensor(data["cap_seed_valid"]),
+                PlanarRegionConfig(), h, w, comm,
+                flood_rounds=int(data["cap_rounds"])))
     elif name == "gather":
         # Comm.all_gather (one buffer) against the list form it replaced
         for key in data["cases"].tolist():
