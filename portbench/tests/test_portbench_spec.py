@@ -1,0 +1,142 @@
+"""BENCHMARK.json against the contract's shape, and every cell, metric
+and configuration found by name, so that one more file and entry make one
+more cell with no edit."""
+
+import importlib
+import json
+import os
+import re
+import shutil
+
+import pytest
+
+from portbench.bench import spec
+
+BENCH = spec.benchmark()
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+
+
+def test_top_level_keys_and_limits():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert BENCH["paths"] == ["portbench"]
+    assert BENCH["command"] == ["python3", "portbench/run.py"]
+    assert 1 <= BENCH["run_seconds"] <= 51
+    # a full check of 24 cells fits into 43,200 s
+    runs = 2 + 14 * 24
+    assert runs * (BENCH["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
+    assert len(json.dumps(BENCH)) <= 64 * 1024
+
+
+@pytest.mark.parametrize("kind", ["configs", "workloads", "end_to_end",
+                                  "per_layer"])
+def test_names_units_and_keys(kind):
+    keys = {"configs": {"name", "source", "file", "reduced", "why"},
+            "workloads": {"name", "config", "traffic", "chips", "why"},
+            "end_to_end": {"name", "unit", "better", "bound", "source"},
+            "per_layer": {"name", "unit", "better", "source", "layer",
+                          "moves"}}[kind]
+    names = [e["name"] for e in BENCH[kind]]
+    assert len(names) == len(set(names))
+    for e in BENCH[kind]:
+        assert NAME.match(e["name"]), e["name"]
+        assert set(e) - {"workloads"} == keys, e["name"]
+        if "unit" in e:
+            assert UNIT.match(e["unit"]) and e["better"] in ("lower",
+                                                              "higher")
+        for k in ("why", "layer", "source"):
+            if k in e:
+                assert 1 <= len(e[k]) <= 200 and "\n" not in e[k]
+
+
+def test_cells_and_metrics_cover_each_other():
+    wl = {w["name"]: w for w in BENCH["workloads"]}
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    assert {c["name"] for c in BENCH["configs"]} == \
+        {w["config"] for w in BENCH["workloads"]}
+    assert len({(w["config"], w["traffic"]) for w in wl.values()}) == len(wl)
+    four = [w for w in wl.values() if w["chips"] == 4]
+    assert len(four) <= max(1, len(wl) // 4)
+    assert e2e["setup_s"]["bound"] <= 0.25 and "workloads" not in \
+        e2e["setup_s"]
+    for m in e2e.values():
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+    for name in wl:
+        reports = [m for m in e2e.values() if spec.applies(m, name)]
+        assert len(reports) >= 2 and e2e["setup_s"] in reports
+        assert any(spec.applies(m, name) for m in BENCH["per_layer"])
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in e2e and m["source"] in (
+            "device_trace", "program_span", "program_counter", "host_clock")
+        for w in m["workloads"]:
+            assert spec.applies(e2e[m["moves"]], w), (m["name"], w)
+        if m["unit"] == "%" and "roofline" in m["name"]:
+            assert m["name"].split(".")[0].endswith("_roofline")
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_resolves(workload):
+    cell = spec.Cell(workload)
+    cfg = cell.config
+    importlib.import_module(f"portbench.paths.{cfg['entry']}")
+    assert cfg["ranks"] == cell.chips
+    assert set(cfg["limits"]) == set(importlib.import_module(
+        f"portbench.paths.{cfg['entry']}").Path.tally().values)
+    for _, s in cell.per_layer:
+        importlib.import_module(f"portbench.readers.{s['reader']}")
+        for k in s.get("kernels", ()):
+            mod = importlib.import_module(f"portbench.kernels.{k}")
+            assert mod.WRAPPER.startswith("pcseg_tpu_torch.")
+
+
+def test_every_file_resolves():
+    """Every configuration, mix and metric file parses and names what
+    exists, those no cell uses yet (the sharded cell's) included."""
+    from portbench.tests.helpers import sharded_cell
+    for f in os.listdir(os.path.join(spec.BENCH_DIR, "layer_metrics")):
+        s = spec.load_json(os.path.join(spec.BENCH_DIR, "layer_metrics", f))
+        importlib.import_module(f"portbench.readers.{s['reader']}")
+    for f in os.listdir(os.path.join(spec.BENCH_DIR, "mixes")):
+        m = spec.load_json(os.path.join(spec.BENCH_DIR, "mixes", f))
+        assert m["loop"] == "closed" and m["pool"] > 0
+    cell = sharded_cell()
+    assert cell.config["ranks"] == cell.chips == 4
+    assert set(cell.config["limits"]) == set(importlib.import_module(
+        "portbench.paths.sharded").Path.tally().values)
+
+
+def test_config_files_state_the_run():
+    from pcseg_tpu_torch.models import config
+    files = {c["file"]: c for c in BENCH["configs"]}
+    for f in os.listdir(os.path.join(spec.BENCH_DIR, "configs")):
+        d = spec.load_json(os.path.join(spec.BENCH_DIR, "configs", f))
+        c = files.get(f"portbench/configs/{f}", {"reduced": []})
+        assert d["reduced"] == c["reduced"] == []
+        assert config.config_from_dict(d["segmenter"]) == \
+            config.SegmenterConfig()
+
+
+def test_a_new_mix_file_is_a_new_cell(tmp_path):
+    """A later change adds a mix file and a workloads entry; the harness
+    finds both without an edit."""
+    root = tmp_path / "checkout"
+    shutil.copytree(spec.BENCH_DIR, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads(json.dumps(BENCH))
+    mix = spec.load_json(os.path.join(spec.BENCH_DIR, "mixes",
+                                      "cluttered_cameras.json"))
+    mix["cameras"] = 2
+    (root / "portbench" / "mixes" / "two_cameras.json").write_text(
+        json.dumps(mix))
+    bench["workloads"].append(dict(name="stream_two", config="vga_stream_b8",
+                                   traffic="two_cameras", chips=1, why="x"))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m and "stream_cluttered" in m["workloads"]:
+            m["workloads"].append("stream_two")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = spec.Cell("stream_two", root=str(root))
+    assert cell.mix["cameras"] == 2
+    assert {m["name"] for m, _ in cell.per_layer} == \
+        {m["name"] for m, _ in spec.Cell("stream_cluttered").per_layer}
