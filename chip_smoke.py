@@ -613,17 +613,22 @@ def vga_scenes():
 
 
 def kernel_counters():
-    """({name: kernel module}, reset, read) for the launch counts."""
+    """({name: kernel module}, reset, read) for the launch counts: read
+    gives each kernel's ``launches.<name>`` counter of ``utils/profiling``
+    since the last reset."""
     from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
+    from pcseg_tpu_torch.utils import profiling
     kernels_mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
                    "flood_packed": flood_packed}
+    base = {}
 
     def reset_counts():
-        for m in kernels_mod.values():
-            m.launches = 0
+        for k in kernels_mod:
+            base[k] = profiling.total("launches." + k)
 
     def read_counts():
-        return {k: m.launches for k, m in kernels_mod.items()}
+        return {k: profiling.total("launches." + k) - base.get(k, 0)
+                for k in kernels_mod}
 
     return kernels_mod, reset_counts, read_counts
 
@@ -2594,8 +2599,8 @@ def sharded_rank(backend, tmp):
     a timed rerun, then the golden's scenes; writes its column blocks and
     the replicated tables to DIR."""
     import torch
-    from pcseg_tpu_torch.kernels import ccl_gated, flood_packed
     from pcseg_tpu_torch.parallel import distributed, halo, sharded
+    from pcseg_tpu_torch.utils import profiling
 
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2655,12 +2660,13 @@ def sharded_rank(backend, tmp):
         run(step, data[scenes[0]], origin)  # warm-up
         for name in scenes:
             pts = data[name]
-            for m in (ccl_gated, flood_packed):
-                m.launches = 0
+            l0 = [profiling.total("launches." + k)
+                  for k in ("ccl_gated", "flood_packed")]
             g0 = comm.gathers
             res, ms, gs = run(step, pts, origin)
-            out[name + "_launches"] = np.array([ccl_gated.launches,
-                                                flood_packed.launches])
+            out[name + "_launches"] = np.array(
+                [profiling.total("launches." + k) - b
+                 for k, b in zip(("ccl_gated", "flood_packed"), l0)])
             out[name + "_gathers"] = np.array(comm.gathers - g0)
             keep(name, res)
             keep(name + "_plain", run(step_plain, pts, origin)[0])

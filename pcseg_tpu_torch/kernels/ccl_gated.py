@@ -19,9 +19,6 @@ import torch
 
 from pcseg_tpu_torch.kernels import build, common
 
-# CUDA launches of this kernel since the caller last reset it
-launches = 0
-
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -58,7 +55,6 @@ def ccl_gated(gate: torch.Tensor, labels0: torch.Tensor, offsets, rounds: int,
     and any even count of at most 32 offsets (frames whose column strips,
     with their halo columns, or rows do not fit in shared memory take the
     kernel's second instance)."""
-    global launches
     if gate.dim() != 3:
         raise ValueError(f"gate must be [B, H, W], got {tuple(gate.shape)}")
     b, h, w = gate.shape
@@ -88,5 +84,4 @@ def ccl_gated(gate: torch.Tensor, labels0: torch.Tensor, offsets, rounds: int,
         common.ptr(out), common.ptr(tmp), common.ptr(flags),
         common.ptr(rounds_out), ctypes.cast(offs, ctypes.c_void_p), n, o_row,
         o_col, b, h, w, int(rounds))
-    launches += 1
     return out

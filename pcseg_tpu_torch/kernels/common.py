@@ -9,6 +9,8 @@ import ctypes
 
 import torch
 
+from pcseg_tpu_torch.utils import profiling
+
 
 def shift2(x: torch.Tensor, dr: int, dc: int, fill) -> torch.Tensor:
     """out[..., r, c] = x[..., r + dr, c + dc] on the last two axes (out of
@@ -184,8 +186,10 @@ def launch(fn, device: torch.device, *args) -> None:
     the launcher plans its cooperative grid on ``cudaGetDevice()``'s card
     and launches on the stream it is given, so both must be the tensors'
     card whichever card the calling thread has current. Raises on a CUDA
-    error."""
+    error. Counts ``launches.<kernel>`` (``fn``'s name without
+    ``_launch``) in ``utils/profiling``."""
     with torch.cuda.device(device):
         rc = fn(*args, stream_ptr(device))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed with CUDA error {rc}")
+    profiling.count("launches." + fn.__name__.removesuffix("_launch"))

@@ -20,9 +20,6 @@ import torch
 
 from pcseg_tpu_torch.kernels import build, common
 
-# CUDA launches of this kernel since the caller last reset it
-launches = 0
-
 INF_RANK = 2 ** 30
 BIG_LIN = 2 ** 30
 
@@ -129,7 +126,6 @@ def epoch_word(px, py, pz, rank, elig, word, srank, alive, plane, anchor_r,
     launch the kernel, one cooperative launch per call, for any H and W
     (frames whose rows or column strips do not fit in shared memory take
     the kernel's in-place instance)."""
-    global launches
     b, h, w = px.shape
     k_cap = srank.shape[1] if srank.dim() == 2 else -1
     dev = px.device
@@ -173,5 +169,4 @@ def epoch_word(px, py, pz, rank, elig, word, srank, alive, plane, anchor_r,
         p(plane), p(anchor_r), p(anchor_c), p(radius), p(out), p(gate),
         p(flags), p(rounds_out), p(part_mom), p(part_cnt), p(part_key), p(cnt),
         p(mrank), p(alin), p(mom), b, h, w, k_cap, float(tau), int(rounds))
-    launches += 1
     return out, cnt, mrank, alin, mom

@@ -19,9 +19,6 @@ import torch
 
 from pcseg_tpu_torch.kernels import build, common
 
-# CUDA launches of this kernel since the caller last reset it
-launches = 0
-
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -84,7 +81,6 @@ def flood_packed(gate_words: torch.Tensor, reach0_words: torch.Tensor,
     launch the kernel, one cooperative launch per call, for any H and W
     (planes whose rows or column strips do not fit in shared memory take
     the kernel's in-place instance)."""
-    global launches
     if gate_words.dim() != 3:
         raise ValueError(f"gate_words must be [N, H, W], got "
                          f"{tuple(gate_words.shape)}")
@@ -105,5 +101,4 @@ def flood_packed(gate_words: torch.Tensor, reach0_words: torch.Tensor,
         _lib().flood_packed_launch, dev, common.ptr(gate_words),
         common.ptr(reach0_words), common.ptr(out), common.ptr(flags),
         common.ptr(rounds_out), n, h, w, int(rounds))
-    launches += 1
     return out

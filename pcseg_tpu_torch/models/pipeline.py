@@ -36,6 +36,7 @@ from pcseg_tpu_torch.ops import discontinuity, geom
 from pcseg_tpu_torch.ops import normals as normals_op
 from pcseg_tpu_torch.ops import seeds as seeds_op
 from pcseg_tpu_torch.ops import unproject
+from pcseg_tpu_torch.utils import profiling
 
 
 class FrameMetrics(NamedTuple):
@@ -88,8 +89,10 @@ class Segmenter:
         self.impl = impl
         self._rays = None  # (host ray table, its device copy)
 
-    def _tensor(self, x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+    def _tensor(self, x, dtype=None, site="input"):
+        """``x`` on this device (a copy from host memory is the host sync
+        ``site``)."""
+        return profiling.to_device(x, dtype, self.device, site)
 
     def _sequential(self):
         return self.config.planar.growth_mode != "batched"
@@ -128,8 +131,31 @@ class Segmenter:
         sequential grower does not read (ROADMAP Queue 3)."""
         cfg = self.config
         b, h, w = points.shape[:3]
-        nrm = normals_op.compute_normals_organized(points, sensor_origin,
-                                                   cfg.normals)
+        with profiling.stage("normals"):
+            nrm = normals_op.compute_normals_organized(points, sensor_origin,
+                                                       cfg.normals)
+        with profiling.stage("seeds"):
+            rank_grid, idx, valid, num_seeds = self._seeds(points, nrm,
+                                                           temporal)
+        if labels0 is None:
+            labels0 = torch.full((b, h, w), UNLABELED, dtype=torch.int32,
+                                 device=points.device)
+        with profiling.stage("grower"):
+            if self._sequential():
+                dev = planar.grow_planar_regions(
+                    points, nrm, labels0, idx, valid, cfg.planar,
+                    initial_id_offset=0,
+                    max_attempts=cfg.max_region_attempts)
+            else:
+                dev = planar_batched.grow_planar_regions_batched(
+                    points, nrm, labels0, idx, valid, cfg.planar,
+                    seed_rank_grid=rank_grid, impl=self.impl)
+        return nrm, num_seeds, dev
+
+    def _seeds(self, points, nrm, temporal):
+        """(rank grid, indices, valid, seed count [B]) of :meth:`_planar`,
+        the temporal seeds joined."""
+        cfg = self.config
         rank_grid, idx, valid = self._rank_seeds(points, nrm)
         num_seeds = 0
         if temporal is not None:
@@ -149,26 +175,16 @@ class Segmenter:
         else:
             num_seeds = (rank_grid < seeds_op.SEED_RANK_INF).sum(
                 dim=(1, 2), dtype=torch.int32)
-        if labels0 is None:
-            labels0 = torch.full((b, h, w), UNLABELED, dtype=torch.int32,
-                                 device=points.device)
-        if self._sequential():
-            dev = planar.grow_planar_regions(
-                points, nrm, labels0, idx, valid, cfg.planar,
-                initial_id_offset=0, max_attempts=cfg.max_region_attempts)
-            return nrm, num_seeds, dev
-        dev = planar_batched.grow_planar_regions_batched(
-            points, nrm, labels0, idx, valid, cfg.planar,
-            seed_rank_grid=rank_grid, impl=self.impl)
-        return nrm, num_seeds, dev
+        return rank_grid, idx, valid, num_seeds
 
     def _clusters(self, points, labels, need_sizes=True):
         # every point seeds, popped in ascending col-major order (the
         # canonical sweep, which that path never reads)
-        return cluster.segment_clusters(
-            points, labels, None,
-            self.config.cluster, initial_id_offset=0, canonical_seeds=True,
-            need_sizes=need_sizes, impl=self.impl)
+        with profiling.stage("clusters"):
+            return cluster.segment_clusters(
+                points, labels, None,
+                self.config.cluster, initial_id_offset=0,
+                canonical_seeds=True, need_sizes=need_sizes, impl=self.impl)
 
     def _forward(self, points, sensor_origin, labels0=None, need_sizes=True):
         """[B, H, W, 3] points -> (final labels, normals, planar regions,
@@ -185,19 +201,21 @@ class Segmenter:
         result) without the frame axis. ``input_mask`` ([H, W] int32)
         carries MASKED_* sentinels that growth and clustering never claim.
         """
-        pts = self._tensor(points, torch.float32)[None]
-        origin = self._tensor(sensor_origin, torch.float32)
-        mask = None if input_mask is None else \
-            self._tensor(input_mask, torch.int32)[None]
-        final, nrm, dev, cres = self._forward(pts, origin, mask)
-        return (final[0], nrm[0], type(dev)(*[_first(x) for x in dev]),
-                type(cres)(*[_first(x) for x in cres]))
+        with profiling.request("forward"):
+            pts = self._tensor(points, torch.float32)[None]
+            origin = self._tensor(sensor_origin, torch.float32)
+            mask = None if input_mask is None else \
+                self._tensor(input_mask, torch.int32)[None]
+            final, nrm, dev, cres = self._forward(pts, origin, mask)
+            return (final[0], nrm[0], type(dev)(*[_first(x) for x in dev]),
+                    type(cres)(*[_first(x) for x in cres]))
 
     def device_forward_batched(self, points_batch, sensor_origins):
         """[B, H, W, 3] frames and [B, 3] origins -> batched
         (labels, normals, regions, cluster result with sizes)."""
-        return self._forward(self._tensor(points_batch, torch.float32),
-                             self._tensor(sensor_origins, torch.float32))
+        with profiling.request("forward"):
+            return self._forward(self._tensor(points_batch, torch.float32),
+                                 self._tensor(sensor_origins, torch.float32))
 
     def device_forward_stream(self, depth_batch_u16, rays, sensor_origin,
                               depth_scale=unproject.DEFAULT_DEPTH_SCALE):
@@ -207,14 +225,16 @@ class Segmenter:
 
         Like the JAX path, the uint8 cast wraps ids >= 256 (cluster ids are
         not capped)."""
-        depth = self._tensor(depth_batch_u16)
-        points = unproject.unproject_range(
-            depth, self._tensor(rays, torch.float32), depth_scale)
-        final, _, dev, cres = self._forward(
-            points, self._tensor(sensor_origin, torch.float32),
-            need_sizes=False)
-        labels_u8 = torch.where(final >= 0, final, 255).to(torch.uint8)
-        return labels_u8, dev.num_regions, cres.num_regions, dev.planes
+        with profiling.request("stream"):
+            depth = self._tensor(depth_batch_u16)
+            rays_d = self._tensor(rays, torch.float32)
+            origin = self._tensor(sensor_origin, torch.float32)
+            with profiling.stage("unproject"):
+                points = unproject.unproject_range(depth, rays_d, depth_scale)
+            final, _, dev, cres = self._forward(points, origin,
+                                                need_sizes=False)
+            labels_u8 = torch.where(final >= 0, final, 255).to(torch.uint8)
+            return labels_u8, dev.num_regions, cres.num_regions, dev.planes
 
     # -- full pipeline ------------------------------------------------------
 
@@ -236,15 +256,16 @@ class Segmenter:
         nrm, num_seeds, dev = self._planar(points, sensor_origin, labels0,
                                            temporal)
         rot = self._tensor(np.eye(3, dtype=np.float32) if rot_robot is None
-                           else np.asarray(rot_robot, np.float32))
+                           else np.asarray(rot_robot, np.float32), site="rot")
+        with profiling.stage("discontinuity"):
+            disc = discontinuity.discontinuity_flags(points, nrm, dev.labels,
+                                                     rot, cfg.planar)
         out = dict(
             dev_labels=dev.labels, planes=dev.planes,
             centroids=dev.centroids, curvatures=dev.curvatures,
             counts=dev.counts, seed_indices=dev.seed_indices,
             num_regions=dev.num_regions, overflow=dev.overflow,
-            num_seeds=num_seeds,
-            disc=discontinuity.discontinuity_flags(points, nrm, dev.labels,
-                                                   rot, cfg.planar))
+            num_seeds=num_seeds, disc=disc)
         if self._dev_cluster():
             cres = self._clusters(points, dev.labels)
             out.update(cres_labels=cres.labels, cres_num=cres.num_regions,
@@ -270,18 +291,20 @@ class Segmenter:
         int32 initial label grid carrying MASKED_EGO / MASKED_OUT sentinels
         (segmentation.h:36-45); masked cells are never claimed and survive
         into the output."""
-        points_np = np.asarray(points, np.float32)
-        pts = self._tensor(points_np)[None]
-        labels0 = None if input_mask is None else \
-            self._tensor(input_mask, torch.int32)[None]
-        temporal = None
-        if prev_regions:
-            temporal = self._temporal_tables(prev_regions, pose_cur_prev)
-        payload = self._payload(pts, self._tensor(sensor_origin,
-                                                  torch.float32),
-                                labels0, rot_robot, temporal)
-        return self._host_finalize(points_np, payload, rot_robot,
-                                   lambda labels: self._clusters(pts, labels))
+        with profiling.request("frame"):
+            points_np = np.asarray(points, np.float32)
+            pts = self._tensor(points_np)[None]
+            labels0 = None if input_mask is None else \
+                self._tensor(input_mask, torch.int32)[None]
+            temporal = None
+            if prev_regions:
+                temporal = self._temporal_tables(prev_regions, pose_cur_prev)
+            payload = self._payload(pts, self._tensor(sensor_origin,
+                                                      torch.float32),
+                                    labels0, rot_robot, temporal)
+            return self._host_finalize(
+                points_np, payload, rot_robot,
+                lambda labels: self._clusters(pts, labels))
 
     def _temporal_tables(self, prev_regions, pose_cur_prev):
         """The previous records packed as JAX packs them: [1, K] tables of
@@ -319,98 +342,118 @@ class Segmenter:
         input mask, as in JAX."""
         if depth_scale is None:
             depth_scale = unproject.DEFAULT_DEPTH_SCALE
-        if self._rays is None or self._rays[0] is not rays:
-            self._rays = (rays, self._tensor(rays, torch.float32))
-        depth_np = np.asarray(depth_u16)
-        pts = unproject.unproject_range(self._tensor(depth_np)[None],
-                                        self._rays[1], depth_scale)
-        payload = self._payload(pts, self._tensor(sensor_origin,
-                                                  torch.float32),
-                                None, rot_robot)
-        points_np = unproject.unproject_range_np(
-            depth_np, np.asarray(rays, np.float32), float(depth_scale))
-        return self._host_finalize(points_np, payload, rot_robot,
-                                   lambda labels: self._clusters(pts, labels))
+        with profiling.request("frame"):
+            if self._rays is None or self._rays[0] is not rays:
+                self._rays = (rays, self._tensor(rays, torch.float32,
+                                                 site="rays"))
+            depth_np = np.asarray(depth_u16)
+            depth = self._tensor(depth_np)[None]
+            origin = self._tensor(sensor_origin, torch.float32)
+            with profiling.stage("unproject"):
+                pts = unproject.unproject_range(depth, self._rays[1],
+                                                depth_scale)
+            payload = self._payload(pts, origin, None, rot_robot)
+            with profiling.stage("unproject"):
+                points_np = unproject.unproject_range_np(
+                    depth_np, np.asarray(rays, np.float32),
+                    float(depth_scale))
+            return self._host_finalize(
+                points_np, payload, rot_robot,
+                lambda labels: self._clusters(pts, labels))
 
     def _host_finalize(self, points_np, payload, rot_robot, recluster):
         """Host half of one frame: ``payload`` is :meth:`_payload`'s dict
         (frame axis of 1); ``recluster`` runs the cluster stage on the
         device for a corrected [1, H, W] int32 label grid."""
-        cfg = self.config
-        host = {k: v[0].cpu().numpy() for k, v in payload.items()}
-        dev = planar_batched.PlanarRegions(
-            labels=host["dev_labels"], num_regions=host["num_regions"],
-            planes=host["planes"], centroids=host["centroids"],
-            curvatures=host["curvatures"], counts=host["counts"],
-            seed_indices=host["seed_indices"], moments=None,
-            overflow=host["overflow"])
-        labels, records = boundary.finalize_planar_regions(
-            points_np, None, dev, cfg.planar, 0, rot_robot,
-            disc_flags=host["disc"])
-        summary = classify.ClassificationDebugSummary()
-        classify.classify_regions(records, cfg.classification,
-                                  cfg.up_direction, cfg.known_floor_point,
-                                  summary)
+        with profiling.stage("host_finalize"):
+            cfg = self.config
+            with profiling.stage("finalize.copy"), \
+                    profiling.blocking("payload", len(payload)):
+                host = {k: v[0].cpu().numpy() for k, v in payload.items()}
+            dev = planar_batched.PlanarRegions(
+                labels=host["dev_labels"], num_regions=host["num_regions"],
+                planes=host["planes"], centroids=host["centroids"],
+                curvatures=host["curvatures"], counts=host["counts"],
+                seed_indices=host["seed_indices"], moments=None,
+                overflow=host["overflow"])
+            with profiling.stage("finalize.boundary"):
+                labels, records = boundary.finalize_planar_regions(
+                    points_np, None, dev, cfg.planar, 0, rot_robot,
+                    disc_flags=host["disc"])
+            summary = classify.ClassificationDebugSummary()
+            with profiling.stage("finalize.classify"):
+                classify.classify_regions(
+                    records, cfg.classification, cfg.up_direction,
+                    cfg.known_floor_point, summary)
 
-        num_planar = len(records)
-        num_clusters = 0
-        cluster_sizes = np.zeros((0,), np.int32)
-        labels_final = labels
-        if cfg.run_clustering and not self._dev_cluster():
+            num_planar = len(records)
+            with profiling.stage("finalize.recluster"):
+                labels_final, num_clusters, cluster_sizes = self._recluster(
+                    points_np, labels, host, num_planar, int(dev.num_regions),
+                    recluster)
+
+            objects: List[extract.DetectedObject] = []
+            with profiling.stage("finalize.extract"):
+                indexer = extract.RegionIndexer(labels_final) \
+                    if (records or num_clusters) else None
+                for rec in records:
+                    objects.append(extract.planar_detected_object_from_labels(
+                        points_np, labels_final, rec, indexer=indexer))
+                for cid in range(num_clusters):
+                    objects.append(extract.cluster_detected_object(
+                        points_np, labels_final, num_planar + cid,
+                        SEMANTIC_UNKNOWN, indexer=indexer))
+
+            metrics = FrameMetrics(
+                num_seeds=int(host["num_seeds"]),
+                num_device_planar_regions=int(dev.num_regions),
+                num_planar_regions=num_planar,
+                num_clusters=num_clusters,
+                planar_overflow=bool(dev.overflow))
+            return FrameResult(labels=labels_final, normals=None,
+                               planar_regions=records,
+                               num_clusters=num_clusters,
+                               cluster_sizes=cluster_sizes,
+                               objects=objects, metrics=metrics,
+                               classification_summary=summary)
+
+    def _recluster(self, points_np, labels, host, num_planar, num_device,
+                   recluster):
+        """The finalize's clusters: (final labels, cluster count, cluster
+        sizes) from the mean shift, or from the device clusters, clustered
+        again when the finalize rejected a device region."""
+        cfg = self.config
+        if not cfg.run_clustering:
+            return labels, 0, np.zeros((0,), np.int32)
+        labels_final = labels.copy()
+        if not self._dev_cluster():
             # the mean shift (mean_shift_segmentation.h:207-330): region ids
             # follow the planar ids; the host-ops library runs modes and
             # growth in one call, the device growth without it
-            labels_final = labels.copy()
             growth = "native" if native.load_hostops() is not None \
                 else "device"
             regions = mean_shift.sliding_mean_shift(
                 points_np, labels_final, cfg.cluster,
                 cfg.mean_shift_iterations, num_planar, cfg.mean_shift,
                 growth=growth, device=self.device)
-            num_clusters = len(regions)
-            cluster_sizes = np.asarray(
+            return labels_final, len(regions), np.asarray(
                 [len(r.inlier_indices) for r in regions], np.int32)
-        elif cfg.run_clustering:
-            cl, num_clusters, sizes = (host["cres_labels"],
-                                       int(host["cres_num"]),
-                                       host["cres_sizes"])
-            if num_planar != int(dev.num_regions):
-                # the finalize rejected a device-accepted region: its cells
-                # reverted to UNLABELED and are clusterable (the reference's
-                # quarantine-then-reset), so cluster the corrected grid
-                c2 = recluster(self._tensor(labels, torch.int32)[None])
+        cl, num_clusters, sizes = (host["cres_labels"], int(host["cres_num"]),
+                                   host["cres_sizes"])
+        if num_planar != num_device:
+            # the finalize rejected a device-accepted region: its cells
+            # reverted to UNLABELED and are clusterable (the reference's
+            # quarantine-then-reset), so cluster the corrected grid
+            c2 = recluster(self._tensor(labels, torch.int32,
+                                        site="recluster")[None])
+            with profiling.blocking("recluster.read", 3):
                 cl = c2.labels[0].cpu().numpy()
                 num_clusters = int(c2.num_regions[0])
                 sizes = c2.region_sizes[0].cpu().numpy()
-            # cluster ids follow the planar ids
-            mask = (cl >= 0) & (labels == UNLABELED)
-            labels_final = labels.copy()
-            labels_final[mask] = cl[mask] + num_planar
-            cluster_sizes = sizes[:num_clusters]
-
-        objects: List[extract.DetectedObject] = []
-        indexer = extract.RegionIndexer(labels_final) \
-            if (records or num_clusters) else None
-        for rec in records:
-            objects.append(extract.planar_detected_object_from_labels(
-                points_np, labels_final, rec, indexer=indexer))
-        for cid in range(num_clusters):
-            objects.append(extract.cluster_detected_object(
-                points_np, labels_final, num_planar + cid,
-                SEMANTIC_UNKNOWN, indexer=indexer))
-
-        metrics = FrameMetrics(
-            num_seeds=int(host["num_seeds"]),
-            num_device_planar_regions=int(dev.num_regions),
-            num_planar_regions=num_planar,
-            num_clusters=num_clusters,
-            planar_overflow=bool(dev.overflow))
-        return FrameResult(labels=labels_final, normals=None,
-                           planar_regions=records,
-                           num_clusters=num_clusters,
-                           cluster_sizes=cluster_sizes,
-                           objects=objects, metrics=metrics,
-                           classification_summary=summary)
+        # cluster ids follow the planar ids
+        mask = (cl >= 0) & (labels == UNLABELED)
+        labels_final[mask] = cl[mask] + num_planar
+        return labels_final, num_clusters, sizes[:num_clusters]
 
 
 def frame_arrays(result) -> dict:

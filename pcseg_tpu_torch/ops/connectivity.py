@@ -21,6 +21,7 @@ import torch
 from pcseg_tpu_torch.kernels import ccl_gated, common
 from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.ops.frames import takes_frames
+from pcseg_tpu_torch.utils import profiling
 
 
 def colmajor_index_grid(h, w, device=None):
@@ -60,7 +61,8 @@ def window_gates(points, eligible, squared_threshold, offsets):
                       for dr, dc in offsets])
     nb_elig = torch.stack([elig[:, p + dr:p + dr + h, p + dc:p + dc + w]
                            for dr, dc in offsets])
-    thr = torch.tensor(squared_threshold, dtype=points.dtype, device=dev)
+    with profiling.blocking("clusters.threshold"):
+        thr = torch.tensor(squared_threshold, dtype=points.dtype, device=dev)
     d = nb - points
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     return (d2 < thr) & eligible & nb_elig

@@ -28,6 +28,7 @@ from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import PlanarRegionConfig
 from pcseg_tpu_torch.ops import nansafe
 from pcseg_tpu_torch.ops.frames import takes_frames
+from pcseg_tpu_torch.utils import profiling
 
 
 def _shift_cells(x, dr, dc, fill):
@@ -51,7 +52,8 @@ def discontinuity_flags(points: torch.Tensor, normals: torch.Tensor,
     dev = points.device
 
     def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+        with profiling.blocking("discontinuity.gates"):
+            return torch.tensor(v, dtype=torch.float32, device=dev)
 
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from pcseg_tpu_torch.utils import profiling
+
 # the gather into one buffer; newer releases renamed it
 _gather_into = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
@@ -35,8 +37,10 @@ class Comm:
     tensors gather in place; gloo with CUDA tensors (ranks sharing one
     card, which NCCL refuses) stages each gather through host memory,
     ``"gloo via host"``. :attr:`transport` names it; :attr:`gathers`
-    counts the collectives made. Every transport gathers into one
-    preallocated buffer (``all_gather_into_tensor``)."""
+    counts the collectives made, and each is the span ``comm.all_gather``
+    of ``utils/profiling`` (its staging copies the host sync
+    ``comm.stage``). Every transport gathers into one preallocated buffer
+    (``all_gather_into_tensor``)."""
 
     def __init__(self, group=None, device="cuda"):
         self.device = torch.device(device)
@@ -59,17 +63,21 @@ class Comm:
         if self.size == 1:
             return x[None]
         self.gathers += 1
-        dtype = x.dtype
-        y = x.to(torch.uint8) if dtype == torch.bool else x
-        if self.staged:
-            y = y.cpu()
-        y = y.contiguous()
-        out = torch.empty((self.size, *y.shape), dtype=y.dtype,
-                          device=y.device)
-        # flat: gloo takes the rank blocks laid end to end along dim 0
-        _gather_into(out.view(-1), y.view(-1), group=self.group)
-        out = out.to(self.device)
-        return out.to(torch.bool) if dtype == torch.bool else out
+        with profiling.stage("comm.all_gather"):
+            dtype = x.dtype
+            y = x.to(torch.uint8) if dtype == torch.bool else x
+            if self.staged:
+                with profiling.blocking("comm.stage"):
+                    y = y.cpu()
+            y = y.contiguous()
+            out = torch.empty((self.size, *y.shape), dtype=y.dtype,
+                              device=y.device)
+            # flat: gloo takes the rank blocks laid end to end along dim 0
+            _gather_into(out.view(-1), y.view(-1), group=self.group)
+            if self.staged:
+                with profiling.blocking("comm.stage"):
+                    out = out.to(self.device)
+            return out.to(torch.bool) if dtype == torch.bool else out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks, added in rank order (the same bytes on

@@ -39,6 +39,7 @@ from pcseg_tpu_torch.ops import connectivity, geom, nansafe, plane_fit
 from pcseg_tpu_torch.ops import normals as normals_op
 from pcseg_tpu_torch.ops import seeds as seeds_op
 from pcseg_tpu_torch.parallel.halo import Comm, crop_halo, exchange_halo
+from pcseg_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +216,8 @@ def sharded_grow_planar_regions(points_local, normals_local, labels_local,
         return grid
 
     def grow_one(labels_in, seed_idx):
-        idx = torch.tensor([seed_idx], dtype=torch.int32, device=dev)
+        with profiling.blocking("sharded.seed"):
+            idx = torch.tensor([seed_idx], dtype=torch.int32, device=dev)
         seed_point = _gather_seed_values(points_local, idx, h, comm)[0]
         seed_normal = _gather_seed_values(normals_local, idx, h, comm)[0]
         plane = geom.plane_from_normal_point(seed_normal, seed_point)
@@ -234,7 +236,8 @@ def sharded_grow_planar_regions(points_local, normals_local, labels_local,
             sums = comm.psum(_moment_sums(accepted, points_local)).to(dtype)
             m = m._replace(s2=m.s2 + sums[:6], s1=m.s1 + sums[6:9],
                            w=m.w + sums[9])
-            n_accepted = int(comm.psum(accepted.sum(dtype=torch.int32)))
+            with profiling.blocking("sharded.accepted"):
+                n_accepted = int(comm.psum(accepted.sum(dtype=torch.int32)))
             new_count = count + n_accepted
             crossed = new_count // period > count // period
             if crossed:
@@ -256,11 +259,13 @@ def sharded_grow_planar_regions(points_local, normals_local, labels_local,
     while attempts < max_attempts and num_regions < r_cap:
         seed_labels = _gather_seed_values(labels, seed_indices, h, comm)
         available = seed_valid & ~consumed & (seed_labels == UNLABELED)
-        if not bool(available.any()):
-            break
-        pick = int(torch.where(available, seed_order, -1).argmax())
-        consumed[pick] = True
-        seed_idx = int(seed_indices[pick])
+        with profiling.blocking("sharded.available"):
+            if not bool(available.any()):
+                break
+        with profiling.blocking("sharded.pick", 2):
+            pick = int(torch.where(available, seed_order, -1).argmax())
+            consumed[pick] = True
+            seed_idx = int(seed_indices[pick])
         member, plane, m, count = grow_one(labels, seed_idx)
         attempts += 1
         accept = count >= config.min_region_inliers
@@ -277,13 +282,15 @@ def sharded_grow_planar_regions(points_local, normals_local, labels_local,
         for field in plane_fit.PlaneMoments._fields:
             getattr(moments, field)[num_regions] = getattr(m, field)
         num_regions += 1
-    return PlanarRegions(
-        labels=torch.where(labels == EXAMINED, UNLABELED, labels),
-        num_regions=torch.tensor(num_regions, dtype=torch.int32, device=dev),
-        planes=planes, centroids=centroids, curvatures=curvatures,
-        counts=counts, seed_indices=seeds_out, moments=moments,
-        overflow=torch.tensor(attempts >= max_attempts
-                              or num_regions >= r_cap, device=dev))
+    with profiling.blocking("sharded.result", 2):
+        return PlanarRegions(
+            labels=torch.where(labels == EXAMINED, UNLABELED, labels),
+            num_regions=torch.tensor(num_regions, dtype=torch.int32,
+                                     device=dev),
+            planes=planes, centroids=centroids, curvatures=curvatures,
+            counts=counts, seed_indices=seeds_out, moments=moments,
+            overflow=torch.tensor(attempts >= max_attempts
+                                  or num_regions >= r_cap, device=dev))
 
 
 def _sharded_flood_packed(gate, sources, comm: Comm, rounds,
@@ -311,10 +318,13 @@ def _sharded_flood_packed(gate, sources, comm: Comm, rounds,
         reach[..., -1] |= padded[..., -1] & g[..., -1]
         return reach
 
+    def changed(reach, prev):
+        with profiling.blocking("sharded.flood"):
+            return int(comm.psum((reach != prev).sum(dtype=torch.int32))) > 0
+
     prev, reach = reach0, exchange(local_flood(reach0))
     it = 1
-    while it < global_rounds and int(comm.psum(
-            (reach != prev).sum(dtype=torch.int32))) > 0:
+    while it < global_rounds and changed(reach, prev):
         prev, reach = reach, exchange(local_flood(reach))
         it += 1
     out = local_flood(reach)
@@ -425,8 +435,9 @@ def sharded_connected_components(points_local, eligible_local,
     src_pts = points_local[:, w_local - k:]
     src_lab = labels[:, w_local - k:]
     src_ok = eligible_local[:, w_local - k:]
-    thr = torch.tensor(squared_threshold, dtype=points_local.dtype,
-                       device=dev)
+    with profiling.blocking("clusters.threshold"):
+        thr = torch.tensor(squared_threshold, dtype=points_local.dtype,
+                           device=dev)
     strip = torch.arange(k, device=dev)[None, :]
     pair_a, pair_b = [], []
     for dc in range(1, k + 1):
@@ -457,10 +468,14 @@ def sharded_connected_components(points_local, eligible_local,
         parent = parent[parent.long()]
         return parent[parent.long()]
 
+    def changed(parent, prev):
+        with profiling.blocking("sharded.union_find"):
+            return bool((parent != prev).any())
+
     prev = torch.arange(hw + 1, dtype=torch.int32, device=dev)
     parent = uf_round(prev)
     it = 1
-    while it < uf_rounds and bool((parent != prev).any()):
+    while it < uf_rounds and changed(parent, prev):
         prev, parent = parent, uf_round(parent)
         it += 1
     remapped = parent[labels.clamp(0, hw).long()]
@@ -489,28 +504,39 @@ def build_sharded_segment_step(
     script only). Each rank passes its own block; W = W_local * ranks."""
 
     def step(points_local, sensor_origin) -> ShardedStepResult:
-        pts = torch.as_tensor(points_local, dtype=torch.float32,
-                              device=comm.device)
-        origin = torch.as_tensor(sensor_origin, dtype=torch.float32,
-                                 device=comm.device)
+        with profiling.request("sharded"):
+            return run(points_local, sensor_origin)
+
+    def run(points_local, sensor_origin):
+        pts = profiling.to_device(points_local, torch.float32, comm.device)
+        origin = profiling.to_device(sensor_origin, torch.float32,
+                                     comm.device)
         h, w_local = pts.shape[:2]
         w = w_local * comm.size
-        nrm = sharded_normals(pts, origin, normals_params, comm)
+        with profiling.stage("normals"):
+            nrm = sharded_normals(pts, origin, normals_params, comm)
         labels0 = torch.full((h, w_local), UNLABELED, dtype=torch.int32,
                              device=comm.device)
         if planar_config.growth_mode == "batched":
-            rank_grid = sharded_plane_support_rank_grid(
-                pts, nrm, seed_params, h, w, comm)
-            regions = sharded_grow_planar_regions_batched(
-                pts, nrm, labels0, None, None, planar_config, h, w, comm,
-                seed_rank_grid=rank_grid, impl=impl)
+            with profiling.stage("seeds"):
+                rank_grid = sharded_plane_support_rank_grid(
+                    pts, nrm, seed_params, h, w, comm)
+            with profiling.stage("grower"):
+                regions = sharded_grow_planar_regions_batched(
+                    pts, nrm, labels0, None, None, planar_config, h, w,
+                    comm, seed_rank_grid=rank_grid, impl=impl)
         else:
-            seed_idx, seed_valid = sharded_plane_support_seeds(
-                pts, nrm, seed_params, h, w, comm)
-            regions = sharded_grow_planar_regions(
-                pts, nrm, labels0, seed_idx, seed_valid, planar_config, h,
-                w, comm, 0, max_attempts)
+            with profiling.stage("seeds"):
+                seed_idx, seed_valid = sharded_plane_support_seeds(
+                    pts, nrm, seed_params, h, w, comm)
+            with profiling.stage("grower"):
+                regions = sharded_grow_planar_regions(
+                    pts, nrm, labels0, seed_idx, seed_valid, planar_config,
+                    h, w, comm, 0, max_attempts)
+        with profiling.stage("clusters"):
+            return clusters(pts, nrm, regions, h, w)
 
+    def clusters(pts, nrm, regions, h, w):
         eligible = (regions.labels == UNLABELED) & nansafe.all_finite(pts)
         roots = sharded_connected_components(
             pts, eligible, cluster_config.squared_distance_threshold,

@@ -21,6 +21,7 @@ from pcseg_tpu.ops import seeds as jseeds
 
 from pcseg_tpu_torch.kernels import flood_packed
 from pcseg_tpu_torch.models import config, planar_batched
+from pcseg_tpu_torch.utils import profiling
 from tests.test_torch_grower import assert_planes, frames
 
 # One intra-op thread: the suite runs in parallel worker processes, and
@@ -210,13 +211,14 @@ def test_grower_k40_matches_jax(shape):
         return n, ranked.rank_grid, dev
 
     nrm, rank_grid, want = jax.jit(jax.vmap(jax_one))(jnp.asarray(pts))
-    launches = flood_packed.launches
+    launches = profiling.total("launches.flood_packed")
     got = planar_batched.grow_planar_regions_batched(
         torch.from_numpy(pts), torch.from_numpy(np.array(nrm)),
         torch.full(pts.shape[:3], UNLABELED, dtype=torch.int32), None, None,
         config.PlanarRegionConfig(max_regions=40),
         seed_rank_grid=torch.from_numpy(np.array(rank_grid)))
-    assert flood_packed.launches == launches  # CPU tensors: plain version
+    # CPU tensors: the plain version
+    assert profiling.total("launches.flood_packed") == launches
     want_n = np.asarray(want.num_regions)
     np.testing.assert_array_equal(got.num_regions.numpy(), want_n)
     np.testing.assert_array_equal(got.labels.numpy(),

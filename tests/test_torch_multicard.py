@@ -28,6 +28,7 @@ from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
 from pcseg_tpu_torch.models import config, pipeline
 from pcseg_tpu_torch.ops import connectivity, unproject
 from pcseg_tpu_torch.parallel import distributed
+from pcseg_tpu_torch.utils import profiling
 from pcseg_tpu_torch.utils.synthetic import (synthetic_cluttered_room_cloud,
                                              synthetic_room_cloud)
 from tests.torch_sharded_worker import run_ranks
@@ -225,15 +226,14 @@ def test_kernel_on_the_second_card(two_cards, kernel):
     """With card 0 current, the kernel on cuda:1 equals its cuda:0 run
     (bytes) and its plain version (B1's moments within MOM_RTOL/ATOL)."""
     args, fn = KERNEL_CASES[kernel]()
-    mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
-           "flood_packed": flood_packed}[kernel]
     outs = {}
     for dev in ("cpu", *two_cards):
-        before = mod.launches
+        before = profiling.total("launches." + kernel)
         res = fn(*[a.to(dev) if torch.is_tensor(a) else a for a in args])
         res = res if isinstance(res, tuple) else (res,)
         outs[str(dev)] = [t.cpu() for t in res]
-        assert mod.launches == before + (str(dev) != "cpu")
+        assert profiling.total("launches." + kernel) == \
+            before + (str(dev) != "cpu")
         assert torch.cuda.current_device() == 0
     for a, b in zip(outs["cuda:1"], outs["cuda:0"]):
         assert a.numpy().tobytes() == b.numpy().tobytes()
@@ -255,14 +255,16 @@ def test_segmenter_on_the_second_card(two_cards, slots):
         h, w, f=float(h), seed=s)[0]) for s in (1, 2)])
     cfg = config.SegmenterConfig(
         planar=config.PlanarRegionConfig(max_regions=slots))
-    mods = (epoch_word, ccl_gated, flood_packed)
+    names = ["launches." + k for k in ("epoch_word", "ccl_gated",
+                                       "flood_packed")]
     got = {}
     for dev in two_cards:
-        before = [m.launches for m in mods]
+        before = [profiling.total(n) for n in names]
         out = pipeline.Segmenter(cfg, device=dev).device_forward_stream(
             d16, rays, np.zeros(3, np.float32))
         got[dev.index] = ([t.cpu().numpy().tobytes() for t in out],
-                          [m.launches - b for m, b in zip(mods, before)])
+                          [profiling.total(n) - b
+                           for n, b in zip(names, before)])
         assert torch.cuda.current_device() == 0
     assert got[1] == got[0]
     assert got[0][1][1] == 1 and got[0][1][0 if slots == 32 else 2] > 0

@@ -26,7 +26,6 @@ from pcseg_tpu.ops import connectivity as jconnectivity
 from pcseg_tpu.ops import geom as jgeom
 
 from pcseg_tpu_torch import graft_entry
-from pcseg_tpu_torch.kernels import flood_packed
 from pcseg_tpu_torch.models import classify, cluster, config, extract
 from pcseg_tpu_torch.models import pipeline, planar_batched
 from pcseg_tpu_torch.ops import connectivity, geom, xla_order
@@ -810,10 +809,10 @@ def test_surface_on_the_card_matches_the_cpu(cuda_device):
     """flood_fill_static launches B3 once and equals the plain version;
     the mask CCL and the classification equal the CPU."""
     gate, src = (torch.from_numpy(a) for a in flood_case())
-    flood_packed.launches = 0
+    launches = profiling.total("launches.flood_packed")
     got = planar_batched.flood_fill_static(gate.to(cuda_device),
                                            src.to(cuda_device), 64)
-    assert flood_packed.launches == 1
+    assert profiling.total("launches.flood_packed") == launches + 1
     assert torch.equal(got.cpu(), planar_batched.flood_fill_static(
         gate, src, 64))
     for name in ("p30", "serpentine"):
