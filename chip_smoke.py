@@ -8,14 +8,15 @@
 Phases (each prints one JSON line; any failure exits nonzero without the
 final result line):
   1. device: the card's name and power limit; TF32 off;
-  2. build: the three CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
+  2. build: the four CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
      each, started together, with ptxas' report of each kernel's
      registers, shared memory and spills) and the host-ops library (g++),
      which must load;
   3. the serving path at 32 slots, ``Segmenter.device_forward_stream`` at
      VGA (480x640), batch 8, on the room and the cluttered scenes, with
      every launch counter set to 0 just before and read just after; the
-     epoch and CCL kernels must have launched;
+     epoch and CCL kernels must have launched, the normals' support kernel
+     once a batch;
   4. the epoch kernel (B1) against its plain PyTorch version on real inputs
      of that path (the first closure epoch's state, captured from a plain
      run) at flood caps 1, 2 and 64, and on a VGA staircase of member bits
@@ -44,7 +45,12 @@ final result line):
      line's ``ms``) and per call over 10 back-to-back calls
      (``ms_per_call_of_10``), against their plain versions, and the
      stream's ms/batch and points/s (taken here, before the 64-slot
-     phases, so they compare with earlier runs);
+     phases, so they compare with earlier runs); then the normals' support
+     kernel (``normal_support``) on the cluttered stream's own points, at
+     B = 8 and on its first frame (B = 1): counts, moment sums, center
+     mask, hint and the normals solved from them bitwise equal to its plain
+     version, one device kernel per call, and its times (one call, per call
+     of 10, plain) beside its bound;
   9. the serving path at 64 slots (flood epochs), same batches, counted
      like phase 3: the flood and CCL kernels must launch, the epoch kernel
      must not;
@@ -500,6 +506,71 @@ def kernels_per_call(torch, fn, calls=5):
             sorted(e.key[:60] for e in device + host))
 
 
+def normal_support_phase(torch, card, points8):
+    """The normals' support kernel against its plain version on ``points8``
+    ([8, H, W, 3] on the card) and on its first frame, bitwise; one device
+    kernel per call; times beside the bound. Returns the kernels line's
+    fields of each case, the largest |kernel - plain| over the fields
+    compared (``max_abs_err``) among them."""
+    from pcseg_tpu_torch.kernels import normal_support
+    from pcseg_tpu_torch.models import config
+    from pcseg_tpu_torch.ops import normals
+
+    params = config.ComputeNormalsParams()
+    origin = torch.zeros(3, device=points8.device)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def abs_err(a, b):
+        # 0 where the bits agree (NaN against NaN too), else |a - b| in f64
+        diff = (a.double() - b.double()).abs()
+        return float(torch.where(bits(a) == bits(b), 0.0, diff).max())
+
+    out = {}
+    for case, pts in (("b8", points8), ("b1", points8[:1].contiguous())):
+        got = normals.find_normal_support(pts, params)
+        want = normals.find_normal_support(pts, params, impl="plain")
+        torch.cuda.synchronize()
+        fields = {"count": (got.count, want.count),
+                  "center_valid": (got.center_valid, want.center_valid),
+                  **{f: (a, b) for f, a, b in zip(
+                      got.moments._fields, got.moments, want.moments)}}
+        unequal = [f for f, (a, b) in fields.items()
+                   if not torch.equal(bits(a), bits(b))]
+        err = max(abs_err(a, b) for a, b in fields.values())
+        n_got = normals.normals_from_support(got, pts, origin, params)
+        n_want = normals.normals_from_support(want, pts, origin, params)
+        normals_equal = bool(torch.equal(bits(n_got), bits(n_want)))
+
+        def run(impl=None):
+            return normal_support.normal_support(pts, params, impl)
+
+        ms = cuda_ms(torch, run)
+        ms_10 = cuda_ms(torch, run, calls=10)
+        plain_ms = cuda_ms(torch, lambda: run("plain"))
+        bound_ms, bound_by = bound(nbytes(pts, *[a for a, _ in
+                                                 fields.values()]))
+        out[case] = dict(shape=list(pts.shape), max_abs_err=err, ms=ms,
+                         ms_per_call_of_10=ms_10, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        emit("normal_support_vs_plain", case=case, card=card,
+             unequal_fields=unequal, normals_equal=normals_equal,
+             supported=int((got.count >= params.min_num_support_neighbors)
+                           .sum()), **out[case])
+        if unequal or not normals_equal:
+            fail(f"normal_support disagrees with its plain version ({case}):"
+                 f" {unequal}, normals equal: {normals_equal}")
+    per_call, launched, names = kernels_per_call(
+        torch, lambda: normals.find_normal_support(points8, params))
+    emit("normal_support_device_events", per_call=per_call,
+         launch_calls_per_call=launched, names=names)
+    if per_call > 1 or launched != 1:
+        fail(f"normal_support put {per_call} device events and {launched} "
+             "launches per call on the card, not one kernel")
+    return out
+
+
 def golden_mismatches(got, want, points, known_cells):
     """The port's frame_arrays against a JAX golden's -> (mismatches,
     [(row, col), port label, golden label] of each differing cell, the fits
@@ -616,10 +687,12 @@ def kernel_counters():
     """({name: kernel module}, reset, read) for the launch counts: read
     gives each kernel's ``launches.<name>`` counter of ``utils/profiling``
     since the last reset."""
-    from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
+    from pcseg_tpu_torch.kernels import (ccl_gated, epoch_word, flood_packed,
+                                         normal_support)
     from pcseg_tpu_torch.utils import profiling
     kernels_mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
-                   "flood_packed": flood_packed}
+                   "flood_packed": flood_packed,
+                   "normal_support": normal_support}
     base = {}
 
     def reset_counts():
@@ -631,6 +704,12 @@ def kernel_counters():
                 for k in kernels_mod}
 
     return kernels_mod, reset_counts, read_counts
+
+
+def nonzero_counts(counts):
+    """The kernels of a ``read_counts()`` dict that launched, with their
+    counts."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def result_line(torch):
@@ -646,6 +725,7 @@ def main():
     from pcseg_tpu_torch.kernels import ccl_gated, epoch_word, flood_packed
     from pcseg_tpu_torch.models import config, pipeline
     from pcseg_tpu_torch.ops import connectivity, nansafe, unproject
+    from pcseg_tpu_torch.ops import normals as normals_op
 
     kernels_mod, reset_counts, read_counts = kernel_counters()
 
@@ -728,6 +808,9 @@ def main():
     for k in ("epoch_word", "ccl_gated"):
         if counts32[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    if counts32["normal_support"] != len(batches):
+        fail(f"normal_support launched {counts32['normal_support']} times "
+             f"for {len(batches)} stream batches, not once a batch")
 
     # 4. epoch kernel vs plain on the first closure epoch's real inputs at
     # three flood caps, and on a staircase of member bits where the cap
@@ -894,6 +977,9 @@ def main():
          ccl_gated_serpentine_cap24_ms_per_call_of_10=cs_10,
          ccl_gated_serpentine_cap24_plain_ms=cs_plain,
          stream=stream_times(seg))
+    ns_times = normal_support_phase(torch, card, capture(
+        normals_op, "compute_normals_organized",
+        lambda: stream(seg_plain, "cluttered"))[0])
 
     # 9. the serving path at 64 slots, counted
     stream(seg64, "room")  # warm-up
@@ -1099,6 +1185,16 @@ def main():
     c_bound = bound(nbytes(cargs[0], cargs[1], c_got24))
     f_bound = bound(nbytes(fargs[0], fargs[1], f_got))
     kernels = [
+        dict(name="normal_support", route="cuda",
+             source="pcseg_tpu_torch/csrc/normal_support.cu",
+             replaces=None, launches=counts32["normal_support"],
+             **ns_times["b8"], library_ms=None, b1=ns_times["b1"],
+             launches_sharded_per_rank={
+                 n: {s: [c[2] for c in per] for s, per in v.items()}
+                 for n, v in sharded_launches.items()},
+             launches_nccl_per_rank={
+                 n: {s: [c[2] for c in per] for s, per in v.items()}
+                 for n, v in nccl_launches.items()}),
         dict(name="epoch_word", route="cuda",
              source="pcseg_tpu_torch/csrc/epoch_word.cu",
              replaces="pcseg_tpu/models/planar_batched.py:291",
@@ -1937,8 +2033,7 @@ def surface_phase(torch, card, dev, scenes, rays, origin, stream,
          reached=int(got.sum()), sources=int((src & gate).sum()),
          ms=times["flood_fill_static_ms"],
          plain_ms=times["flood_fill_static_plain_ms"])
-    if not exact or flood_counts != dict(epoch_word=0, ccl_gated=0,
-                                         flood_packed=1):
+    if not exact or nonzero_counts(flood_counts) != {"flood_packed": 1}:
         fail(f"flood_fill_static: exact={exact}, launches {flood_counts} "
              "(one flood_packed launch and nothing else expected)")
 
@@ -2233,7 +2328,7 @@ def conventions_phase(torch, card, dev, scenes, rays, origin, reset_counts,
         roots, n = counted(lambda: connectivity.connected_components_scan(
             pts, eligible, thr, half, cfg.cluster.scan_rounds))
         launches[f"{scene}_ccl_scan"] = n
-        if n != dict(epoch_word=0, ccl_gated=1, flood_packed=0):
+        if nonzero_counts(n) != {"ccl_gated": 1}:
             bad.append(f"{scene}.ccl_scan launches {n}")
         same(f"{scene}.ccl_scan_vs_plain", roots,
              connectivity.connected_components_scan(
@@ -2518,7 +2613,7 @@ def inputs_phase(torch, card, dev, scenes, rays, origin, reset_counts,
                                        "centroids", "curvatures",
                                        "moments"))})
         n = launches[f"{scene}_connected_components_scan"]
-        if n != dict(epoch_word=0, ccl_gated=1, flood_packed=0):
+        if nonzero_counts(n) != {"ccl_gated": 1}:
             bad.append(f"{scene}.ccl_scan launches {n}")
         emit("inputs_frame", card=card, scene=scene, functions=len(calls),
              launches={k: v for k, v in launches.items()
@@ -2585,6 +2680,10 @@ def gather_probe(torch, comm):
         want = np.stack([probe(r)[key] for r in range(comm.size)])
         ok &= got.dtype == want.dtype and got.tobytes() == want.tobytes()
     return bool(ok)
+
+
+# the kernels counted per rank and step in phases 23 and 25, in this order
+SHARDED_KERNELS = ("ccl_gated", "flood_packed", "normal_support")
 
 
 def sharded_rank(backend, tmp):
@@ -2661,12 +2760,12 @@ def sharded_rank(backend, tmp):
         for name in scenes:
             pts = data[name]
             l0 = [profiling.total("launches." + k)
-                  for k in ("ccl_gated", "flood_packed")]
+                  for k in SHARDED_KERNELS]
             g0 = comm.gathers
             res, ms, gs = run(step, pts, origin)
             out[name + "_launches"] = np.array(
                 [profiling.total("launches." + k) - b
-                 for k, b in zip(("ccl_gated", "flood_packed"), l0)])
+                 for k, b in zip(SHARDED_KERNELS, l0)])
             out[name + "_gathers"] = np.array(comm.gathers - g0)
             keep(name, res)
             keep(name + "_plain", run(step_plain, pts, origin)[0])
@@ -2742,10 +2841,11 @@ def check_group(phase, backend, n, m, pts, ref, gold, gpts, card, times,
     """The rules of phase 23 on one group's merged results ``m``: labels
     equal to the ranks' plain runs and reruns, region and cluster counts
     equal to the 1-rank step, labels >= 99% and planes within JAX's bound
-    against it, one B2 launch and some B3 launches per rank per step, the
-    128x160 golden exact; with ``gloo`` (phase 25) also labels, counts and
-    planes byte-equal to the gloo group's of the same rank count. Returns
-    {scene: per-rank [B2, B3] launches}."""
+    against it, one B2 launch, some B3 launches and one normal_support
+    launch per rank per step, the 128x160 golden exact; with ``gloo``
+    (phase 25) also labels, counts and planes byte-equal to the gloo
+    group's of the same rank count. Returns {scene: per-rank [B2, B3,
+    normal_support] launches}."""
     def same(a, b):
         return np.asarray(a).tobytes() == np.asarray(b).tobytes()
 
@@ -2779,7 +2879,8 @@ def check_group(phase, backend, n, m, pts, ref, gold, gpts, card, times,
             one_rank_num_regions=want["num_regions"],
             num_clusters=int(m[name + "_num_clusters"]),
             one_rank_num_clusters=want["num_clusters"],
-            launches_ccl_gated_flood_packed_per_rank=per_rank,
+            launches_per_rank=dict(zip(SHARDED_KERNELS,
+                                       np.asarray(per_rank).T.tolist())),
             collectives_per_step=int(m[name + "_gathers"]),
             ms_per_step_per_rank=ms,
             gather_host_s_per_step_per_rank=m[name + "_gather_s"],
@@ -2808,9 +2909,9 @@ def check_group(phase, backend, n, m, pts, ref, gold, gpts, card, times,
                 or int(m[name + "_num_clusters"]) != want["num_clusters"]:
             fail(f"{phase} on {n} ranks ({name}) is outside JAX's bound "
                  "against the 1-rank step")
-        if any(c[0] != 1 or c[1] <= 0 for c in per_rank):
-            fail(f"{phase} on {n} ranks ({name}) did not launch B2 once and "
-                 f"B3 on every rank: {per_rank}")
+        if any(c[0] != 1 or c[1] <= 0 or c[2] != 1 for c in per_rank):
+            fail(f"{phase} on {n} ranks ({name}) did not launch B2 once, B3 "
+                 f"and normal_support once on every rank: {per_rank}")
         if gloo is not None and not line["bytes_equal_gloo"]:
             fail(f"{phase} on {n} ranks ({name}) differs from the gloo "
                  "group's bytes")
@@ -2851,8 +2952,8 @@ def sharded_phase(torch, card, dev, scenes, rays, origin, nccl):
     step on the card; the 128x160 golden. With ``nccl``, phase 25 right
     after it: the same over NCCL with one rank per card (2 ranks, and 4
     where there are 4 cards), also byte-equal to the gloo group of the
-    same rank count. Returns (times, {rank count: per-rank [B2, B3]
-    launches per scene} for gloo, the same for NCCL)."""
+    same rank count. Returns (times, {rank count: per-rank [B2, B3,
+    normal_support] launches per scene} for gloo, the same for NCCL)."""
     import tempfile
     from pcseg_tpu_torch.ops import unproject
     from pcseg_tpu_torch.parallel import halo, sharded

@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcseg_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]
-SOURCES = ("epoch_word", "ccl_gated", "flood_packed")
+SOURCES = ("epoch_word", "ccl_gated", "flood_packed", "normal_support")
 
 _loaded: dict = {}
 

@@ -132,8 +132,8 @@ class Segmenter:
         cfg = self.config
         b, h, w = points.shape[:3]
         with profiling.stage("normals"):
-            nrm = normals_op.compute_normals_organized(points, sensor_origin,
-                                                       cfg.normals)
+            nrm = normals_op.compute_normals_organized(
+                points, sensor_origin, cfg.normals, impl=self.impl)
         with profiling.stage("seeds"):
             rank_grid, idx, valid, num_seeds = self._seeds(points, nrm,
                                                            temporal)

@@ -83,14 +83,15 @@ def _gather_seed_values(grid_local, seed_indices, h, comm):
 
 
 def sharded_normals(points_local, sensor_origin,
-                    params: ComputeNormalsParams, comm: Comm):
+                    params: ComputeNormalsParams, comm: Comm, impl=None):
     """Organized normals of a column block [H, W_local, 3]: the support
     scan over a halo of ``max_scan_steps`` columns (a NaN halo at the grid
     edges is the single-device edge), the eigensolve on the local columns
-    only."""
+    only. ``impl`` as ``ops/normals.find_normal_support``'s."""
     k = params.max_scan_steps
     padded = exchange_halo(points_local, k, comm, fill=float("nan"))
-    support = _crop(normals_op.find_normal_support(padded, params), k, 1)
+    support = _crop(normals_op.find_normal_support(padded, params, impl), k,
+                    1)
     return normals_op.normals_from_support(support, points_local,
                                            sensor_origin, params)
 
@@ -514,7 +515,8 @@ def build_sharded_segment_step(
         h, w_local = pts.shape[:2]
         w = w_local * comm.size
         with profiling.stage("normals"):
-            nrm = sharded_normals(pts, origin, normals_params, comm)
+            nrm = sharded_normals(pts, origin, normals_params, comm,
+                                  impl=impl)
         labels0 = torch.full((h, w_local), UNLABELED, dtype=torch.int32,
                              device=comm.device)
         if planar_config.growth_mode == "batched":

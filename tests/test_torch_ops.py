@@ -177,6 +177,52 @@ def test_normals_match_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+# parameter corners of the support scan: (shape, ComputeNormalsParams
+# fields): fewer rows, then fewer columns, than max_scan_steps + 1 (the
+# scan's reach is cut at the grid edge), diagonals off, another distance
+# band, a scan bound below both sides
+NORMAL_CORNERS = {
+    "rows_below_reach": ((12, 90), {}),
+    "cols_below_reach": ((70, 40), {}),
+    "no_diagonals": ((40, 48), {"include_diagonal_neighbors": False}),
+    "band_0.05_0.5": ((40, 48), {"min_neighbor_distance": 0.05,
+                                 "max_neighbor_distance": 0.5}),
+    "steps_8": ((40, 48), {"max_scan_steps": 8}),
+}
+
+
+@pytest.mark.parametrize("corner", sorted(NORMAL_CORNERS))
+def test_normal_support_corners_match_jax(corner):
+    """The port's plain support scan (the CPU takes it) against JAX's
+    find_normal_support, every field exact, and the normals at
+    test_normals_match_jax's bar."""
+    from pcseg_tpu.models import config as jconfig
+    from pcseg_tpu_torch.models import config
+
+    (h, w), fields = NORMAL_CORNERS[corner]
+    pts, origin = _cloud(h, w, seed=3)
+    assert np.isnan(pts).any() and np.isfinite(pts).all(-1).any()
+    params = config.ComputeNormalsParams(**fields)
+    j_params = jconfig.ComputeNormalsParams(**fields)
+    support = normals.find_normal_support(_t(pts), params)
+    j_support = jnormals.find_normal_support(jnp.asarray(pts), j_params)
+    for f in ("count", "center_valid"):
+        np.testing.assert_array_equal(getattr(support, f).numpy(),
+                                      np.asarray(getattr(j_support, f)),
+                                      err_msg=f)
+    for f in plane_fit.PlaneMoments._fields:
+        np.testing.assert_array_equal(
+            getattr(support.moments, f).numpy(),
+            np.asarray(getattr(j_support.moments, f)), err_msg=f)
+    assert int(support.count.max()) >= 3
+    want = np.asarray(jnormals.compute_normals_organized(
+        jnp.asarray(pts), jnp.asarray(origin), j_params))
+    got = normals.compute_normals_organized(_t(pts), _t(origin),
+                                            params).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("shape", [(40, 40), (128, 160)])
 def test_plane_support_rank_grid(shape):
     """Exact ranks; 128x160 takes the transposed-parity min-fold branch."""

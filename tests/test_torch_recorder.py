@@ -401,7 +401,7 @@ def count_sync_warnings(run):
 def test_every_host_sync_of_a_vga_request_is_counted(path):
     """One VGA request of each path: the card's sync warnings equal the
     request's ``host_syncs``, site by site, and none falls outside a
-    ``sync:`` span."""
+    ``sync:`` span; the normals launch their kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     d16, rays = scenes(480, 640, 2)
@@ -427,3 +427,5 @@ def test_every_host_sync_of_a_vga_request_is_counted(path):
     # K = 32: one epoch kernel launch per closure epoch
     assert req.counters["grower.epochs"] == \
         req.counters.get("launches.epoch_word", 0) > 0
+    # the normals: one support kernel launch per request
+    assert req.counters.get("launches.normal_support") == 1
