@@ -21,7 +21,6 @@ class Context:
         self.span_seconds = {}
         self.span_calls = {}
         self.profile = None
-        self.counters = {}
 
 
 def span_targets(cell) -> list:
@@ -58,9 +57,9 @@ def log(*parts):
 def measure(torch, path, cell, seconds, trace_on, device, keep_going=None,
             profile_here=True):
     """Set-up is done: the window (spans synced when tracing), then with
-    tracing the two profiled windows of ``trace.profile``, each of
-    ``path.profile_requests`` requests (rank 0 alone profiles; the other
-    ranks run the same requests).
+    tracing on a card the two profiled windows of ``trace.profile``, each
+    of ``path.profile_requests`` requests (rank 0 alone profiles; the
+    other ranks run the same requests).
     Returns (window tuple, kept outputs {pool index: [output]}, Context,
     memory peak)."""
     kept = {}
@@ -73,13 +72,13 @@ def measure(torch, path, cell, seconds, trace_on, device, keep_going=None,
     targets = span_targets(cell) if trace_on else []
     spans = trace.Spans(torch, targets, synced=True) if trace_on \
         else nullcontext()
-    with spans, (path.counting() if trace_on else nullcontext()):
+    with spans:
         opened, closed, records = window.closed_loop(
             path.request, seconds, sink, keep_going)
     ctx.requests = len(records)
     if trace_on:
         ctx.span_seconds, ctx.span_calls = spans.seconds, spans.calls
-        ctx.counters = path.counters()
+    if trace_on and is_cuda(device):
         n = path.profile_requests
         runs = [len(records)]
 
@@ -135,7 +134,23 @@ def metrics(cell, trace_on, win, ctx, setup_s, work) -> dict:
                 m["name"], opened, closed, records, work, setup_s),
                 "unit": m["unit"]}
         return out
+    return per_layer(cell, ctx)
+
+
+def in_process(metric: dict) -> bool:
+    """Whether a per-layer metric reads the state of the process that ran
+    the requests (the program's recorder, the harness's spans), not the
+    profile: its ``source`` is not ``device_trace``."""
+    return metric["source"] != "device_trace"
+
+
+def per_layer(cell, ctx, pick=None) -> dict:
+    """The per-layer metrics (those ``pick`` accepts) whose readers find
+    something in ``ctx``, in the cell's order."""
+    out = {}
     for m, spec in cell.per_layer:
+        if pick is not None and not pick(m):
+            continue
         reader = importlib.import_module(f"portbench.readers.{spec['reader']}")
         v = reader.read(spec, ctx)
         if v is not None:

@@ -1,14 +1,18 @@
 """Cells on more than one card: one rank per card, all started from the
 one command.
 
-``launch`` (the parent) builds the program's libraries once, starts
-``run.py --rank R`` for every rank with the environment torchrun gives
-its processes (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT),
-waits for each within ``RANK_TIMEOUT_S`` and merges what they wrote into
-one result; a rank that fails ends the run with every rank's log on
-standard error. Rank r runs on ``cuda:r``; rank 0 times the requests; all
-ranks check their own blocks against the reference. Every file goes to a
-directory under ``TMPDIR``, removed at the end.
+``launch`` (the parent) builds the program's libraries once and starts
+``run.py --rank R`` for every rank as torchrun starts its processes: the
+environment RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT, and
+``OMP_NUM_THREADS=1`` unless the caller set it. Each rank is bound to
+CPUs of its own among those local to its card (``rank_cpus``). The
+parent waits for each rank within ``RANK_TIMEOUT_S`` and merges what
+they wrote into one result; a rank that fails ends the run with every
+rank's log on standard error. Rank r runs on ``cuda:r``; rank 0 times
+the requests and reads the per-layer metrics that need its process (the
+program's recorder, the harness's spans); all ranks check their own
+blocks against the reference. Every file goes to a directory under
+``TMPDIR``, removed at the end.
 """
 
 from __future__ import annotations
@@ -43,6 +47,62 @@ def rank_argv(args, rank: int, rank_dir: str, backend: str) -> list:
     return argv + (["--control"] if args.control else [])
 
 
+def parse_cpulist(text: str) -> list:
+    """CPU numbers of a sysfs cpulist such as ``"0-7,16-23"``."""
+    out = []
+    for part in text.strip().split(","):
+        if part:
+            lo, _, hi = part.partition("-")
+            out.extend(range(int(lo), int(hi or lo) + 1))
+    return out
+
+
+def card_cpus(index: int):
+    """The CPUs that sysfs lists as local to card ``index``, found by the
+    card's PCI address; None where the address or the list cannot be
+    read."""
+    try:
+        import torch
+        p = torch.cuda.get_device_properties(index)
+        addr = (f"{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:"
+                f"{p.pci_device_id:02x}.0")
+        with open(f"/sys/bus/pci/devices/{addr}/local_cpulist") as f:
+            return parse_cpulist(f.read()) or None
+    except (AssertionError, AttributeError, OSError, RuntimeError,
+            ValueError):
+        return None
+
+
+def split(cpus: list, n: int) -> list:
+    """``cpus`` in ``n`` contiguous runs of near-equal length."""
+    return [cpus[j * len(cpus) // n:(j + 1) * len(cpus) // n]
+            for j in range(n)]
+
+
+def rank_cpus(n: int, local: list, allowed) -> list:
+    """Disjoint, non-empty CPU sets for ranks 0..n-1, or None where the
+    CPUs allowed are fewer than the ranks. ``local[r]`` lists the CPUs
+    local to rank r's card (None if unknown): the ranks whose cards list
+    the same CPUs share them out. Where a list is unknown, or the shares
+    would overlap or leave a rank none, the allowed CPUs are split
+    evenly instead."""
+    allowed = set(allowed)
+    if len(allowed) < n:
+        return None
+    if all(local):
+        nodes = {}
+        for r in range(n):
+            key = tuple(sorted(set(local[r]) & allowed))
+            nodes.setdefault(key, []).append(r)
+        out = [None] * n
+        for cpus, ranks in nodes.items():
+            for r, share in zip(ranks, split(list(cpus), len(ranks))):
+                out[r] = set(share)
+        if all(out) and sum(map(len, out)) == len(set().union(*out)):
+            return out
+    return [set(c) for c in split(sorted(allowed), n)]
+
+
 def launch(cell, args, started, backend="nccl", command=None) -> dict:
     """Run the cell's ranks and return the merged result dict.
     ``command`` is the program that runs one rank (default: this
@@ -65,15 +125,27 @@ def launch(cell, args, started, backend="nccl", command=None) -> dict:
     env = dict(os.environ, WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
                NCCL_SHM_DISABLE="1")
+    env.setdefault("OMP_NUM_THREADS", "1")
+    mine = os.sched_getaffinity(0)
+    cpus = rank_cpus(n, [card_cpus(r) if backend == "nccl" else None
+                         for r in range(n)], mine)
+    harness.log(f"ranks' CPUs: {[sorted(c) for c in cpus or ()]}")
     logs = [os.path.join(rank_dir, f"rank{r}.log") for r in range(n)]
     procs = []
     try:
         for r in range(n):
-            with open(logs[r], "w") as log:
-                procs.append(subprocess.Popen(
-                    command + rank_argv(args, r, rank_dir, backend),
-                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-                    stdout=log, stderr=subprocess.STDOUT))
+            # the child inherits this thread's CPUs from its first
+            # instruction on
+            if cpus:
+                os.sched_setaffinity(0, cpus[r])
+            try:
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        command + rank_argv(args, r, rank_dir, backend),
+                        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                        stdout=log, stderr=subprocess.STDOUT))
+            finally:
+                os.sched_setaffinity(0, mine)
         deadline = time.monotonic() + RANK_TIMEOUT_S
         for p in procs:
             try:
@@ -108,7 +180,9 @@ def launch(cell, args, started, backend="nccl", command=None) -> dict:
 def merge(cell, outs: list, started_wall: float) -> dict:
     """The result of the ranks' reports: times from rank 0, set-up from
     the launch to rank 0's window, the check over every rank's blocks,
-    the memory peak of the fullest card."""
+    the memory peak of the fullest card; the per-layer metrics that
+    need rank 0's process as it read them, the others from its
+    profile."""
     found = sorted({m for o in outs for m in o["forbidden"]})
     if found:
         raise SystemExit(f"portbench: forbidden modules loaded in a rank: "
@@ -126,13 +200,16 @@ def merge(cell, outs: list, started_wall: float) -> dict:
     correct, judged = harness.judge(values, compared, cell.config["limits"])
     win = (lead["opened"], lead["closed"], [tuple(r) for r in
                                             lead["records"]])
-    ctx = harness.Context()
-    ctx.requests = len(win[2])
-    ctx.counters = lead["counters"]
-    ctx.profile = lead["profile"]
-    trace_on = lead["profile"] is not None
-    values_out = harness.metrics(cell, trace_on, win, ctx, setup_s,
-                                 lead["points_per_request"])
+    if lead["layer"] is None:
+        values_out = harness.metrics(cell, False, win, None, setup_s,
+                                     lead["points_per_request"])
+    else:
+        ctx = harness.Context()
+        ctx.profile = lead["profile"]
+        got = dict(lead["layer"], **harness.per_layer(
+            cell, ctx, lambda m: not harness.in_process(m)))
+        values_out = {m["name"]: got[m["name"]] for m, _ in cell.per_layer
+                      if m["name"] in got}
     # the parent holds no CUDA context: rank 0 names the card
     return harness.result(cell, lead["kind"], correct, len(win[2]),
                           values_out, max(o["peak"] for o in outs),
@@ -182,14 +259,17 @@ def rank_main(args):
     win, kept, ctx, peak = harness.measure(
         torch, path, cell, args.seconds, bool(args.trace), comm.device,
         keep_going, profile_here=comm.rank == 0)
+    layer = None
     if comm.rank == 0:
         harness.log(f"window: {len(win[2])} steps in "
                     f"{win[1] - win[0]:.3f} s on rank 0")
+        if args.trace:
+            layer = harness.per_layer(cell, ctx, harness.in_process)
     t = harness.check(torch, path, kept)
     out = dict(
         forbidden=forbidden_modules(), window_opened_wall=opened_wall,
         opened=win[0], closed=win[1], records=win[2],
-        points_per_request=path.points_per_request, counters=ctx.counters,
+        points_per_request=path.points_per_request, layer=layer,
         profile=ctx.profile, values=t.values, gaps=sorted(t.gaps),
         compared=t.compared, peak=peak,
         kind=harness.device_kind(torch, comm.device))

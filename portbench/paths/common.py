@@ -3,7 +3,6 @@ requests whose outputs the check compares, and the program's modules."""
 
 from __future__ import annotations
 
-import contextlib
 import importlib
 
 import numpy as np
@@ -55,10 +54,3 @@ class Driver:
     def segmenter_config(self, package):
         (config,) = modules(package, "models.config")
         return config.config_from_dict(self.cfg["segmenter"])
-
-    def counting(self):
-        """Counters on for the traced window (none here)."""
-        return contextlib.nullcontext()
-
-    def counters(self) -> dict:
-        return {}

@@ -6,9 +6,6 @@ block, planar and cluster counts and planes come back to the host."""
 
 from __future__ import annotations
 
-import contextlib
-import time
-
 from portbench.bench import compare
 from portbench.paths.common import REFERENCE, Driver, modules
 from portbench.traffic import scenes
@@ -23,8 +20,6 @@ class Path(Driver):
         self.points = [scenes.unproject_range_np(
             d[0], self.rays, self.frame["depth_scale"])
             for d in self.requests]
-        self._gathers = 0
-        self._gather_s = 0.0
 
     @property
     def points_per_request(self) -> int:
@@ -53,30 +48,6 @@ class Path(Driver):
     def request(self, i):
         return self._run(self.step, self.dist, self.comm,
                          self.pool_index(i))
-
-    @contextlib.contextmanager
-    def counting(self):
-        """Gathers made and host seconds inside ``Comm.all_gather`` while
-        the traced window runs (a spy on the program's class)."""
-        cls = type(self.comm)
-        real = cls.all_gather
-        g0 = self.comm.gathers
-
-        def timed(comm, x):
-            t0 = time.perf_counter()
-            try:
-                return real(comm, x)
-            finally:
-                self._gather_s += time.perf_counter() - t0
-        cls.all_gather = timed
-        try:
-            yield
-        finally:
-            cls.all_gather = real
-            self._gathers += self.comm.gathers - g0
-
-    def counters(self) -> dict:
-        return {"gathers": self._gathers, "gather_s": self._gather_s}
 
     def release(self):
         self.step = None

@@ -1,7 +1,7 @@
 """Small cells for the CPU tests: the real cells' files at a size the CPU
 runs in seconds."""
 
-import glob
+import json
 import os
 import time
 
@@ -10,31 +10,41 @@ import torch
 from portbench.bench import harness, spec
 
 SMALL = dict(rows=48, cols=64, f=48.0)
-# the four-card cell measured in PR 17 and left out of BENCHMARK.json
-# (PERF.md §7): its files stay, its entry is here
-SHARDED = dict(name="sharded_cluttered_4", config="vga_sharded_4",
-               traffic="cluttered_robot", chips=4)
+# the four-card cell is left out of BENCHMARK.json (PERF.md section 7):
+# its entries are in sharded_cluttered_4.json beside this file
+ENTRIES = spec.load_json(os.path.join(os.path.dirname(__file__),
+                                      "sharded_cluttered_4.json"))
+SHARDED = ENTRIES["workload"]
 
 
 def sharded_cell() -> spec.Cell:
-    """The sharded cell built from its files, as a BENCHMARK.json entry
+    """The sharded cell from its entries and files, as BENCHMARK.json
     would name them."""
     here = spec.BENCH_DIR
     bench = spec.benchmark()
-    per_layer = []
-    for f in sorted(glob.glob(os.path.join(here, "layer_metrics",
-                                           "*.sharded.json"))):
-        name = os.path.basename(f)[:-len(".json")]
-        per_layer.append(({"name": name, "unit": ""}, spec.load_json(f)))
     return spec.Cell.from_json(dict(
         name=SHARDED["name"], workload=SHARDED, chips=SHARDED["chips"],
-        config=spec.load_json(os.path.join(here, "configs",
-                                           "vga_sharded_4.json")),
+        config=spec.load_json(os.path.join(spec.ROOT,
+                                           ENTRIES["config"]["file"])),
         mix=spec.load_json(os.path.join(here, "mixes",
-                                        "cluttered_robot.json")),
+                                        SHARDED["traffic"] + ".json")),
         end_to_end=[m for m in bench["end_to_end"]
-                    if m["name"].startswith(("latency", "setup"))],
-        per_layer=per_layer))
+                    if m["name"] in ENTRIES["end_to_end"]],
+        per_layer=[(m, spec.load_json(os.path.join(
+            here, "layer_metrics", m["name"] + ".json")))
+            for m in ENTRIES["per_layer"]]))
+
+
+def with_sharded(bench: dict) -> dict:
+    """A copy of ``bench`` with the sharded cell's entries added."""
+    out = json.loads(json.dumps(bench))
+    out["configs"].append(ENTRIES["config"])
+    out["workloads"].append(SHARDED)
+    for m in out["end_to_end"]:
+        if m["name"] in ENTRIES["end_to_end"] and "workloads" in m:
+            m["workloads"].append(SHARDED["name"])
+    out["per_layer"] += ENTRIES["per_layer"]
+    return out
 
 
 def small_cell(workload, batch=None, pool_items=2, pool=None, ranks=None):

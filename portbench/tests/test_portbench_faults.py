@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from portbench.bench import ranks
-from portbench.tests.helpers import run_small, small_cell
+from portbench.tests.helpers import SHARDED, run_small, small_cell
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -71,10 +71,10 @@ def test_frame_faults_are_caught(monkeypatch, field):
     assert res["attempted"] > 0 and not res["correct"]
 
 
-def sharded_run(fault, control=False):
-    cell = small_cell("sharded_cluttered_4", ranks=2, pool=2)
+def sharded_run(fault, control=False, trace=0):
+    cell = small_cell(SHARDED["name"], ranks=2, pool=2)
     args = argparse.Namespace(workload=cell.name, seed=2 ** 31 + 9,
-                              seconds=1.0, trace=0, control=control)
+                              seconds=1.0, trace=trace, control=control)
     return ranks.launch(cell, args, time.perf_counter(), backend="gloo",
                         command=[sys.executable,
                                  os.path.join(HERE, "fault_rank.py"), fault])

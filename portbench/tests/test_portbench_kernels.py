@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from portbench.bench import roofline, trace
-from portbench.kernels import ccl_gated, epoch_word, flood_packed
+from portbench.kernels import (ccl_gated, epoch_word, flood_packed,
+                               normal_support)
 
 B, K, H, W = 8, 32, 480, 640
 
@@ -41,6 +42,16 @@ def test_ccl_and_flood_read_two_planes_and_write_one(mod, key):
     assert (n_bytes, ops) == (3 * 4 * 16 * H * W, 0)
 
 
+def test_normal_support_reads_12_and_writes_57_bytes_a_pixel():
+    n_bytes, ops = normal_support.cost({"points": t(B, H, W, 3,
+                                                  dtype=torch.float32)})
+    assert (n_bytes, ops) == (69 * B * H * W, 0)
+    # 50.6 us at B = 8, 6.3 us at B = 1 (chip_smoke's bound at 485681c)
+    assert 50.5e-6 < roofline.least_seconds(n_bytes) < 50.7e-6
+    one = normal_support.cost({"points": t(1, H, W, 3)})[0]
+    assert 6.3e-6 < roofline.least_seconds(one) < 6.4e-6
+
+
 def test_spies_see_the_programs_calls():
     """On the CPU the wrappers run their plain versions; the spies still
     record one cost per call, from the bound arguments."""
@@ -50,8 +61,10 @@ def test_spies_see_the_programs_calls():
     pts = torch.from_numpy(scenes.cluttered_room(40, 56, f=40.0, seed=1))
     nrm = normals.compute_normals_organized(pts, torch.zeros(3))
     ranked = seeds.seeds_from_plane_support(pts, nrm, seed_vector=True)
-    costs = {"epoch_word": epoch_word, "flood_packed": flood_packed}
+    costs = {"epoch_word": epoch_word, "flood_packed": flood_packed,
+             "normal_support": normal_support}
     with trace.KernelSpies(costs) as spies:
+        normals.compute_normals_organized(pts, torch.zeros(3))
         planar_batched.grow_planar_regions_batched(
             pts, nrm, torch.full((40, 56), -1, dtype=torch.int32),
             ranked.indices, ranked.valid, flood_rounds=8)
@@ -59,6 +72,7 @@ def test_spies_see_the_programs_calls():
     assert calls and all(b == epoch_word.cost(dict(
         px=t(1, 40, 56, dtype=torch.float32), srank=t(1, 32),
         rounds_out=None))[0] for b, _ in calls)
+    assert spies.calls["normal_support"] == [(69 * 40 * 56, 0)]
 
 
 def test_reduce_trace_names_gaps_by_the_open_span():

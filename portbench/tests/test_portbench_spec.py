@@ -93,11 +93,14 @@ def test_every_cell_resolves(workload):
 
 def test_every_file_resolves():
     """Every configuration, mix and metric file parses and names what
-    exists, those no cell uses yet (the sharded cell's) included."""
-    from portbench.tests.helpers import sharded_cell
+    exists, and every metric file is a per-layer entry's, those of the
+    sharded cell, which no BENCHMARK.json entry names yet, included."""
+    from portbench.tests.helpers import ENTRIES, sharded_cell
+    entries = {m["name"] for m in BENCH["per_layer"] + ENTRIES["per_layer"]}
     for f in os.listdir(os.path.join(spec.BENCH_DIR, "layer_metrics")):
         s = spec.load_json(os.path.join(spec.BENCH_DIR, "layer_metrics", f))
         importlib.import_module(f"portbench.readers.{s['reader']}")
+        assert f[:-len(".json")] in entries, f
     for f in os.listdir(os.path.join(spec.BENCH_DIR, "mixes")):
         m = spec.load_json(os.path.join(spec.BENCH_DIR, "mixes", f))
         assert m["loop"] == "closed" and m["pool"] > 0
@@ -140,3 +143,28 @@ def test_a_new_mix_file_is_a_new_cell(tmp_path):
     assert cell.mix["cameras"] == 2
     assert {m["name"] for m, _ in cell.per_layer} == \
         {m["name"] for m, _ in spec.Cell("stream_cluttered").per_layer}
+
+
+def test_the_sharded_entries_make_a_cell(tmp_path):
+    """The sharded cell's entries, added to BENCHMARK.json, make the cell
+    that the tests build from them, and each per-layer metric's cells
+    report the end-to-end metric it moves."""
+    from portbench.tests.helpers import SHARDED, sharded_cell, with_sharded
+    bench = with_sharded(BENCH)
+    for kind in ("configs", "workloads", "per_layer"):
+        names = [e["name"] for e in bench[kind]]
+        assert len(names) == len(set(names)) and all(map(NAME.match, names))
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    for m in bench["per_layer"]:
+        for w in m["workloads"]:
+            assert spec.applies(e2e[m["moves"]], w), (m["name"], w)
+    root = tmp_path / "checkout"
+    shutil.copytree(spec.BENCH_DIR, root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = spec.Cell(SHARDED["name"], root=str(root))
+    want = sharded_cell()
+    assert cell.config == want.config and cell.chips == 4
+    assert [m["name"] for m in cell.end_to_end] == \
+        [m["name"] for m in want.end_to_end]
+    assert cell.per_layer == want.per_layer
