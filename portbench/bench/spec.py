@@ -6,6 +6,13 @@ configuration's ``file`` holds its sizes and entry
 ``portbench/mixes/<traffic>.json``, and every per-layer metric is
 ``portbench/layer_metrics/<metric>.json``. Adding a file and an entry adds
 a cell or a metric; nothing here changes.
+
+A configuration runs the port's defaults (``SegmenterConfig()``) except
+in the keys its optional ``"changed"`` object declares: each key a dotted
+path into ``segmenter`` (``"planar.max_regions"``) that names a field of
+the port's configuration and differs from that field's default, each
+value the reason. Every other key of ``segmenter`` holds its default, and
+``reduced`` stays empty: nothing is cut.
 """
 
 from __future__ import annotations

@@ -13,6 +13,7 @@ from portbench.tests.test_portbench_faults import sharded_run
 
 @pytest.mark.parametrize("workload,kw", [
     ("stream_cluttered", dict(batch=2)), ("stream_room", dict(batch=2)),
+    ("stream_cartons_k64", dict(batch=2)),
     ("frame_cluttered", dict(pool=2))])
 def test_control_is_not_correct(workload, kw):
     res = run_small(small_cell(workload, **kw), seed=1, seconds=1.5,

@@ -39,7 +39,8 @@ def half_batch(real):
 
 
 @pytest.mark.parametrize("fault", [altered_stream, half_batch])
-@pytest.mark.parametrize("workload", ["stream_cluttered", "stream_room"])
+@pytest.mark.parametrize("workload", ["stream_cluttered", "stream_room",
+                                      "stream_cartons_k64"])
 def test_stream_faults_are_caught(monkeypatch, fault, workload):
     from pcseg_tpu_torch.models import pipeline
     monkeypatch.setattr(pipeline.Segmenter, "device_forward_stream",

@@ -15,8 +15,10 @@ def outputs(path_mod, cell, package, seed=2 ** 31 + 77, n=2):
 
 
 def test_stream_reference_equals_the_port():
+    """At 32 slots (the word-epoch closure, B1's path) and at 64 (the
+    flood-epoch closure, B3's)."""
     from portbench.paths import stream
-    for wl in ("stream_cluttered", "stream_room"):
+    for wl in ("stream_cluttered", "stream_room", "stream_cartons_k64"):
         cell = small_cell(wl, batch=2)
         for got, want in zip(outputs(stream, cell, PROGRAM),
                              outputs(stream, cell, REFERENCE)):

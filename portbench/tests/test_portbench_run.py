@@ -42,8 +42,8 @@ def test_benchmark_files_alone_give_no_result(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["stream_cluttered", "frame_cluttered",
-                                      "stream_room"])
+@pytest.mark.parametrize("workload", [
+    w["name"] for w in spec.benchmark()["workloads"] if w["chips"] == 1])
 def test_a_short_run_on_the_card(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")

@@ -2,6 +2,7 @@
 and configuration found by name, so that one more file and entry make one
 more cell with no edit."""
 
+import dataclasses
 import importlib
 import json
 import os
@@ -110,15 +111,73 @@ def test_every_file_resolves():
         "portbench.paths.sharded").Path.tally().values)
 
 
-def test_config_files_state_the_run():
+def field(obj, path):
+    for part in path:
+        assert dataclasses.is_dataclass(obj) and part in {
+            f.name for f in dataclasses.fields(obj)}, ".".join(path)
+        obj = getattr(obj, part)
+    return obj
+
+
+def replaced(obj, path, value):
+    head, *rest = path
+    return dataclasses.replace(obj, **{
+        head: replaced(getattr(obj, head), rest, value) if rest else value})
+
+
+def check_config_files(bench_dir, bench):
+    """Every configuration file runs the port's defaults except exactly
+    in the keys its ``changed`` declares (``spec.py``'s rule), each a
+    field of the port's configuration that differs from its default;
+    nothing is cut."""
     from pcseg_tpu_torch.models import config
-    files = {c["file"]: c for c in BENCH["configs"]}
-    for f in os.listdir(os.path.join(spec.BENCH_DIR, "configs")):
-        d = spec.load_json(os.path.join(spec.BENCH_DIR, "configs", f))
+    files = {c["file"]: c for c in bench["configs"]}
+    for f in os.listdir(os.path.join(bench_dir, "configs")):
+        d = spec.load_json(os.path.join(bench_dir, "configs", f))
         c = files.get(f"portbench/configs/{f}", {"reduced": []})
         assert d["reduced"] == c["reduced"] == []
-        assert config.config_from_dict(d["segmenter"]) == \
-            config.SegmenterConfig()
+        run = config.config_from_dict(d["segmenter"])
+        want = config.SegmenterConfig()
+        for key, why in d.get("changed", {}).items():
+            path = key.split(".")
+            assert isinstance(why, str) and why, key
+            assert field(run, path) != field(want, path), (f, key)
+            want = replaced(want, path, field(run, path))
+        assert run == want, f
+
+
+def test_config_files_state_the_run():
+    check_config_files(spec.BENCH_DIR, BENCH)
+    for f in ("vga_stream_b8", "vga_frame", "vga_sharded_4"):
+        assert "changed" not in spec.load_json(os.path.join(
+            spec.BENCH_DIR, "configs", f + ".json"))
+
+
+@pytest.mark.parametrize("slots,changed,holds", [
+    (64, None, False),
+    (64, {"planar.max_regions": "64 slots"}, True),
+    (32, {"planar.max_regions": "32 slots"}, False),
+    (32, {"planar.max_slots": "64 slots"}, False)],
+    ids=["undeclared", "declared", "equal_to_default", "names_no_field"])
+def test_a_config_changes_only_what_it_declares(tmp_path, slots, changed,
+                                                holds):
+    """A copy of the benchmark whose stream configuration is edited: a
+    difference from the port's defaults holds only where ``changed``
+    declares it, on a real field and away from its default."""
+    bench_dir = tmp_path / "portbench"
+    shutil.copytree(spec.BENCH_DIR, bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    f = bench_dir / "configs" / "vga_stream_b8.json"
+    d = spec.load_json(str(f))
+    d["segmenter"]["planar"]["max_regions"] = slots
+    if changed is not None:
+        d["changed"] = changed
+    f.write_text(json.dumps(d))
+    if holds:
+        check_config_files(str(bench_dir), BENCH)
+    else:
+        with pytest.raises(AssertionError):
+            check_config_files(str(bench_dir), BENCH)
 
 
 def test_a_new_mix_file_is_a_new_cell(tmp_path):

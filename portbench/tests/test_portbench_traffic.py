@@ -13,7 +13,7 @@ BIG_SEED = 2 ** 31 + 12345
 
 
 @pytest.mark.parametrize("mix", ["cluttered_cameras", "room_cameras",
-                                 "cluttered_robot"])
+                                 "cluttered_robot", "carton_cameras"])
 def test_pool_is_a_function_of_the_seed(mix):
     m = spec.Cell(next(w["name"] for w in spec.benchmark()["workloads"]
                        if w["traffic"] == mix)).mix
@@ -46,6 +46,24 @@ def test_cameras_see_their_own_scenes():
     cams = generate.camera_scenes(m, FRAME, 11)
     assert len(cams) == m["cameras"]
     assert len({c.tobytes() for c in cams}) == m["cameras"]
+
+
+def test_cartons_that_touch_differ_in_depth():
+    """No two cartons that share an edge or a corner share a front plane,
+    whatever the seed's order of depths: each front is a plane of its
+    own, and every camera sees the same set of boxes."""
+    m = spec.load_json(f"{spec.BENCH_DIR}/mixes/carton_cameras.json")
+    s = m["scene"]
+    for dl, dc in ((0, 1), (1, 0), (1, 1), (1, -1)):
+        assert (dl + 2 * dc) % s["depths"] != 0
+    fronts = []
+    for seed in (BIG_SEED, BIG_SEED + 1):
+        pts = scenes.carton_wall(96, 128, f=96.0, seed=seed, **s)
+        x = pts[..., 0][np.isfinite(pts[..., 0])]
+        fronts.append(sorted({round(float(v), 3) for v in x
+                              if abs(v - round(v / 0.2) * 0.2) < 1e-4
+                              and 3.0 - 1e-4 <= v <= 3.8 + 1e-4}))
+    assert fronts[0] == fronts[1] == [3.0, 3.2, 3.4, 3.6, 3.8]
 
 
 def test_frozen_copies_equal_the_port():

@@ -7,6 +7,7 @@ Copied from ``pcseg_tpu_torch/utils/synthetic.py``
 commit 9e5028f, and ``jitter`` from ``chip_smoke.make_batch`` there. The
 generators take any seed ``np.random.default_rng`` takes (a
 ``SeedSequence`` too). Later changes to the program do not move them.
+``carton_wall`` is the harness's own: the program has no such scene.
 """
 
 from __future__ import annotations
@@ -131,4 +132,67 @@ def cluttered_room(rows=120, cols=160, f=120.0, seed=0, with_nan_holes=True,
     return pts
 
 
-GENERATORS = {"room": room, "cluttered_room": cluttered_room}
+def _box_hits(t, d, f, lo, hi):
+    """Lower ``t`` [H, W] to the ray parameter where rays ``d`` from the
+    origin enter the axis-aligned box [lo, hi] (lo[0] > 0, before the
+    camera). Only the pixels inside the box's image, the bounds of its
+    corners' projections widened by 2 pixels, are tested."""
+    rows, cols = t.shape
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                        for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+    r = rows / 2.0 - f * corners[:, 2] / corners[:, 0]
+    c = cols / 2.0 + f * corners[:, 1] / corners[:, 0]
+    r0, r1 = max(int(np.floor(r.min())) - 2, 0), min(int(r.max()) + 3, rows)
+    c0, c1 = max(int(np.floor(c.min())) - 2, 0), min(int(c.max()) + 3, cols)
+    if r0 >= r1 or c0 >= c1:
+        return
+    dw = d[r0:r1, c0:c1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = lo / dw
+        t2 = hi / dw
+    near = np.nanmax(np.minimum(t1, t2), axis=-1)
+    far = np.nanmin(np.maximum(t1, t2), axis=-1)
+    t[r0:r1, c0:c1] = np.minimum(
+        t[r0:r1, c0:c1],
+        np.where((near <= far) & (near > 0.1), near, np.inf))
+
+
+def carton_wall(rows=120, cols=160, f=120.0, seed=0, with_nan_holes=True,
+                columns=8, levels=3, width=0.5, height=0.45, front=3.0,
+                step=0.2, depths=5):
+    """The room's floor and wall with a wall of stacked cartons before
+    it: ``levels`` x ``columns`` boxes of ``width`` x ``height`` m from
+    the floor up, centred on the view, each reaching back to the wall
+    from a face at ``front`` + ``step`` * j m, j < ``depths``. Box
+    (l, c) takes depth ``perm[(l + 2 c) % depths]`` of a permutation drawn
+    from the seed, so with ``depths`` 5 no two boxes that share an edge or
+    a corner share a face plane, and a box that stands out shows its side
+    or top beside its front. Every seed has the same boxes, in another
+    order of depths. Returns [H, W, 3] f32 points."""
+    rng = np.random.default_rng(seed)
+    d = _rays(rows, cols, f)
+    wall_x, floor_z = 4.0, -1.0
+    dz, dx = d[..., 2], d[..., 0]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.minimum(np.where(dz < -1e-6, floor_z / dz, np.inf),
+                       np.where(dx > 1e-6, wall_x / dx, np.inf))
+    t = np.where(t > 0.1, t, np.inf)
+    perm = rng.permutation(depths)
+    y0 = -columns * width / 2.0
+    for lv in range(levels):
+        for c in range(columns):
+            x = front + step * perm[(lv + 2 * c) % depths]
+            lo = np.array([x, y0 + c * width, floor_z + lv * height])
+            hi = np.array([wall_x, y0 + (c + 1) * width,
+                           floor_z + (lv + 1) * height])
+            _box_hits(t, d, f, lo, hi)
+    pts = (t[..., None] * d).astype(np.float32)
+    pts[~np.isfinite(t)] = np.nan
+    if with_nan_holes:
+        holes = rng.random((rows, cols)) < 0.02
+        pts[holes] = np.nan
+    return pts
+
+
+GENERATORS = {"room": room, "cluttered_room": cluttered_room,
+              "carton_wall": carton_wall}
