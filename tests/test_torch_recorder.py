@@ -41,11 +41,11 @@ FRAME_SPANS = {
     "discontinuity": "request.frame", "host_finalize": "request.frame",
     **{"finalize." + k: "host_finalize"
        for k in ("copy", "boundary", "classify", "recluster", "extract")}}
-# the 12 metrics that read the recorder, by the request kind they read
+# the 14 metrics that read the recorder, by the request kind they read
 RECORDER_METRICS = {
     kind: {f"{m}.{kind}" for m in (
         "host_syncs", "sync_wait_ms", "grower_epochs", "grower_stage_a_ms",
-        "grower_closure_ms", "grower_tail_ms")}
+        "grower_closure_ms", "grower_tail_ms", "stage_a_graph_replays")}
     for kind in ("stream", "frame")}
 
 
@@ -362,6 +362,8 @@ def test_traced_metrics_of_a_small_cell_read_the_recorder(workload):
     assert got[f"sync_wait_ms.{kind}"]["value"] > 0
     for part in ("stage_a", "closure", "tail"):
         assert got[f"grower_{part}_ms.{kind}"]["value"] > 0
+    # the CPU's stage A runs eagerly: no graph
+    assert got[f"stage_a_graph_replays.{kind}"]["value"] == 0
 
 
 # -- on the card -------------------------------------------------------------
