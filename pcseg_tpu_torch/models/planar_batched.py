@@ -15,17 +15,20 @@ module for the full semantics map to segmentation.h / planar_region.h).
     card the patched stage replays as one CUDA graph per shape
     (``_stage_a_replayed``): the same launches on the same data, captured
     at the shape's first call.
-  * Stage B: closure epochs under Chebyshev boxes growing by 4/3 per
-    epoch, then ``closure_epochs`` + 1 unboxed epochs (3); every flood
-    stops at its fixed point or after ``flood_rounds`` rounds (64). With
-    K <= 32 each epoch is one call of the epoch kernel
+  * Stage B: one loop (``_closure``) of closure epochs under Chebyshev
+    boxes growing by 4/3 per epoch, then ``closure_epochs`` + 1 unboxed
+    epochs (3); every flood stops at its fixed point or after
+    ``flood_rounds`` rounds (64). A frame freezes once an unboxed epoch
+    leaves its members unchanged (JAX's while_loop under vmap); frozen
+    frames keep their state while the others go on, and the loop ends
+    when all froze. The loop runs one of two epoch steps. With K <= 32 on
+    one device the word step: one call of the epoch kernel
     (kernels/epoch_word.py) on the packed member word, as JAX runs it on a
-    TPU; with K > 32 (more slots than a word has bits) each
-    epoch builds the slots' gates, floods them from the anchors on packed
-    word planes (kernels/flood_packed.py) and settles the claims, as JAX's
-    ``epoch``. A frame freezes once an unboxed epoch leaves its members
-    unchanged (JAX's while_loop under vmap); frozen frames keep their state
-    while the others go on.
+    TPU. With K > 32 (more slots than a word has bits), or with a sharded
+    backend, the flood step: it builds the slots' gates, floods them from
+    the anchors on packed word planes (kernels/flood_packed.py) and
+    settles the claims, as JAX's ``epoch``. Both end in the same slot
+    update as stage A's generations (``_SlotOps.after_claims``).
   * Tail: degenerate (collinear) slots dissolve into an adjacent robust
     slot covering >= 90% of their members; final claims, acceptance and
     dense ids in rank order.
@@ -75,7 +78,8 @@ class _Slots(NamedTuple):
     alive: torch.Tensor      # [B, K] bool
     plane: torch.Tensor      # [B, K, 4]
     hint: torch.Tensor       # [B, K, 3] sticky normal orientation
-    members: torch.Tensor    # [B, K, H, W] bool (None in the word epochs)
+    members: torch.Tensor    # [B, K, H, W] bool; the packed member word
+    #                          [B, H, W] int32 in the word epochs
     fit_count: torch.Tensor  # [B, K] int32 member count at the last refit
 
 
@@ -240,18 +244,17 @@ def _empty_slots(b, k_cap, dtype, dev, members=None) -> _Slots:
 class _SlotOps(NamedTuple):
     """The slot-table updates the grower's stages share (:func:`_slot_ops`)."""
     solve_with_hint: Callable
-    apply_refit: Callable
-    reanchor: Callable
     pick_founders: Callable
     found: Callable
+    after_claims: Callable
 
 
-def _slot_ops(points, normals, rank_grid, bk, k_cap, period,
-              sharded) -> _SlotOps:
+def _slot_ops(points, normals, rank_grid, bk, period) -> _SlotOps:
     """The slot-table updates over one call's [B, H, W] grids (a column
-    shard's when ``sharded``: tile winners then combine the shards'
-    minima). Every tensor they read is an argument or made here, so a
-    stage built on them can be captured as a CUDA graph."""
+    shard's under a sharded backend, one with ``w_total``: tile winners
+    then combine the shards' minima). Every tensor they read is an
+    argument or made here, so a stage built on them can be captured as a
+    CUDA graph."""
     b, h, w = points.shape[:3]   # w: the LOCAL column count
     hw = h * w
     w_total = w if bk.w_total is None else bk.w_total
@@ -296,6 +299,22 @@ def _slot_ops(points, normals, rank_grid, bk, k_cap, period,
             plane=_where(anchor_changed, seed_plane, slots.plane),
             fit_count=torch.where(anchor_changed, 0, slots.fit_count))
 
+    def after_claims(slots, counts, member_rank, anchor, moments):
+        """The slot update after the claims, from each slot's member count,
+        best member seed rank and that seed's col-major cell ``anchor``
+        [B, K]: a slot lives on while it holds members and a seed, moves
+        its anchor to that seed (the members a table carries are cleared
+        for the slots that died) and refits from ``moments(slots)``, the
+        moment sums [B, K, 10] of its members."""
+        alive = slots.alive & (counts > 0) & (member_rank < INF_RANK)
+        slots = reanchor(slots, alive, member_rank,
+                         torch.where(alive, anchor, slots.seed_idx))
+        if slots.members is not None:
+            slots = slots._replace(members=slots.members
+                                   & alive[..., None, None])
+        _, sol = solve_with_hint(moments(slots), slots.hint)
+        return apply_refit(slots, counts, sol)
+
     # --- founders: best uncovered seed per 8x8 tile of the grid ----------
     th = -(-h // N_TILES_AXIS)
     tw = -(-w_total // N_TILES_AXIS)
@@ -311,7 +330,7 @@ def _slot_ops(points, normals, rank_grid, bk, k_cap, period,
     def tile_winners(avail_rank):
         """Per tile, the (rank, col-major index) of its best seed:
         ([B, 64], [B, 64])."""
-        if sharded:
+        if bk.w_total is not None:
             # per-shard minima over the global tiles, combined with pmin;
             # the rank holder is unique, so the min index among the cells
             # attaining the tile's rank is the winner's cell
@@ -365,8 +384,7 @@ def _slot_ops(points, normals, rank_grid, bk, k_cap, period,
             hint=_where(newly, nnm, slots.hint),
             fit_count=torch.where(newly, 0, slots.fit_count))
 
-    return _SlotOps(solve_with_hint, apply_refit, reanchor, pick_founders,
-                    found)
+    return _SlotOps(solve_with_hint, pick_founders, found, after_claims)
 
 
 def _stage_a_patched(points, normals, eligible0, rank_grid, *, k_cap, tau,
@@ -378,8 +396,7 @@ def _stage_a_patched(points, normals, eligible0, rank_grid, *, k_cap, tau,
     b, h, w = points.shape[:3]
     hw = h * w
     dev = points.device
-    ops = _slot_ops(points, normals, rank_grid, GrowerBackend(), k_cap,
-                    period, sharded=False)
+    ops = _slot_ops(points, normals, rank_grid, GrowerBackend(), period)
     slots = _empty_slots(b, k_cap, points.dtype, dev)
     bidx = torch.arange(b, device=dev)[:, None]
     half = PATCH // 2
@@ -454,21 +471,17 @@ def _stage_a_patched(points, normals, eligible0, rank_grid, *, k_cap, tau,
         masked_rank = torch.where(new_mem, rank_p, INF_RANK)
         member_rank, best_flat = masked_rank.reshape(
             b, k_cap, PATCH * PATCH).min(dim=2)
-        alive = slots.alive & (counts > 0) & (member_rank < INF_RANK)
         br = orr + torch.div(best_flat, PATCH, rounding_mode="floor")
         bc = orc + best_flat % PATCH
-        new_seed_idx = torch.where(alive, (bc * h + br).to(torch.int32),
-                                   slots.seed_idx)
-        slots = ops.reanchor(slots, alive, member_rank, new_seed_idx)
-        new_mem = new_mem & alive[..., None, None]
-
         pp = nansafe.sanitize(pts_p)
         feat_p = _moment_features(pp[..., 0], pp[..., 1], pp[..., 2]) \
             .reshape(b, k_cap, PATCH * PATCH, 10)
-        sums = _masked_moments(new_mem.reshape(b, k_cap, -1), feat_p)
-        _, sol = ops.solve_with_hint(sums, slots.hint)
-        slots = ops.apply_refit(slots, counts, sol)
-        mem_p = new_mem
+        slots = ops.after_claims(
+            slots._replace(members=new_mem), counts, member_rank,
+            (bc * h + br).to(torch.int32),
+            lambda s: _masked_moments(s.members.reshape(b, k_cap, -1),
+                                      feat_p))
+        mem_p = slots.members
 
     r, c = patch_index(orr, orc)
     members = torch.zeros((b, k_cap, h, w), dtype=torch.bool, device=dev)
@@ -588,8 +601,7 @@ def grow_planar_regions_batched(
     pts_safe = nansafe.sanitize(points)
     feat = _moment_features(pts_safe[..., 0], pts_safe[..., 1],
                             pts_safe[..., 2]).reshape(b, hw, 10)
-    ops = _slot_ops(points, normals, rank_grid, bk, k_cap, period,
-                    sharded=backend is not None)
+    ops = _slot_ops(points, normals, rank_grid, bk, period)
     rows_g = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     cols_g = torch.arange(w, dtype=torch.int32, device=dev)[None, :] + col0
 
@@ -613,11 +625,14 @@ def grow_planar_regions_batched(
         kk = torch.arange(k_cap, dtype=torch.int32, device=dev)
         return claim, members & (claim[:, None] == kk[None, :, None, None])
 
-    def refit_moments(slots):
+    def member_moments(slots):
+        """[B, K, 10] moment sums of the slots' members (all shards')."""
         mask = slots.members.reshape(b, k_cap, hw)
-        sums = _masked_moments(mask, feat) if backend is None \
+        return _masked_moments(mask, feat) if backend is None \
             else _masked_moments(mask, feat, bk.psum)
-        return ops.solve_with_hint(sums, slots.hint)
+
+    def refit_moments(slots):
+        return ops.solve_with_hint(member_moments(slots), slots.hint)
 
     def settle(slots, new_members):
         _, new_members = claims_of(new_members, slots.rank)
@@ -625,18 +640,14 @@ def grow_planar_regions_batched(
         masked_rank = torch.where(new_members, rank_grid[:, None], INF_RANK)
         local_min, best_flat = masked_rank.reshape(b, k_cap, hw).min(dim=2)
         member_rank = bk.pmin(local_min)
-        alive = slots.alive & (counts > 0) & (member_rank < INF_RANK)
         br = torch.div(best_flat, w, rounding_mode="floor")
         bc = best_flat % w + col0
         # the rank holder is unique: exactly one shard attains the min
-        anchor_lin = bk.pmin(torch.where(
+        anchor = bk.pmin(torch.where(
             (local_min == member_rank) & (member_rank < INF_RANK),
             bc * h + br, BIG_LIN).to(torch.int32))
-        new_seed_idx = torch.where(alive, anchor_lin, slots.seed_idx)
-        slots = ops.reanchor(slots, alive, member_rank, new_seed_idx)
-        slots = slots._replace(members=new_members & alive[..., None, None])
-        _, sol = refit_moments(slots)
-        return ops.apply_refit(slots, counts, sol)
+        return ops.after_claims(slots._replace(members=new_members), counts,
+                                member_rank, anchor, member_moments)
 
     def assign(slots):
         """Founders for the dead slots; a new founder's members are its
@@ -667,18 +678,21 @@ def grow_planar_regions_batched(
         return settle(slots, m)
 
     def flood_epoch(slots, radius):
-        """One closure epoch for K > 32, or at any K with a backend (JAX's
+        """The flood step, for K > 32 or at any K with a backend (B3, JAX's
         ``epoch``): the gates cut to the Chebyshev box of ``radius`` around
         each anchor (members always pass), flooded from the anchors on
-        packed word planes, then settled."""
-        slots = assign(slots)
-        ar = (slots.seed_idx % h)[..., None, None]
-        ac = (slots.seed_idx // h).clamp(0, w_total - 1)[..., None, None]
+        packed word planes, then settled. A frame changed where any member
+        cell did, on any shard: summed across the shards, so their loops
+        stay in step."""
+        s = assign(slots)
+        ar = (s.seed_idx % h)[..., None, None]
+        ac = (s.seed_idx // h).clamp(0, w_total - 1)[..., None, None]
         inbox = ((rows_g - ar).abs() <= radius) & ((cols_g - ac).abs()
                                                    <= radius)
-        gate = slot_gate(slots) & (inbox | slots.members)
-        return settle(slots, bk.flood(gate, onehot(slots.seed_idx),
-                                      flood_rounds))
+        gate = slot_gate(s) & (inbox | s.members)
+        s = settle(s, bk.flood(gate, onehot(s.seed_idx), flood_rounds))
+        return s, bk.psum((s.members != slots.members).flatten(1)
+                          .sum(dim=1, dtype=torch.int32)) != 0
 
     # --- stage A: on 64x64 patches on grids >= 64x64 of >= 4 patches, as
     # one CUDA graph on a card; else on the full grid ---------------------
@@ -699,39 +713,59 @@ def grow_planar_regions_batched(
             for _ in range(stage_a_gens):
                 slots = generation(slots)
 
-    # --- stage B: closure epochs ------------------------------------------
+    # --- stage B: closure epochs, the word step or the flood step --------
     with profiling.stage("grower.closure"):
-        radius = 2 * span
-        radii = []
-        while radius < max(h, w_total):
-            radii.append(radius)
-            radius = (radius * 4) // 3
-        radii += [max(h, w_total)] * (closure_epochs + 1)
-        profiling.count("grower.epochs_scheduled", len(radii))
+        schedule = dict(span=span, size=max(h, w_total),
+                        closure_epochs=closure_epochs)
         if k_cap <= 32 and backend is None:
-            slots = run_word_epochs(
-                slots, radii, points=points, rank_grid=rank_grid,
-                eligible0=eligible0, pick_founders=ops.pick_founders,
-                found=ops.found, reanchor=ops.reanchor,
-                solve_with_hint=ops.solve_with_hint,
-                apply_refit=ops.apply_refit, tau=tau,
-                flood_rounds=flood_rounds, impl=impl)
+            # bit k of a cell's word is slot k's membership
+            with profiling.blocking("grower.kbits"):
+                kbits = torch.tensor([(1 << k) - (1 << 32 if k == 31 else 0)
+                                      for k in range(k_cap)],
+                                     dtype=torch.int32, device=dev)
+            pxyz = [points[..., i].contiguous() for i in range(3)]
+            elig_i32 = eligible0.to(torch.int32)
+
+            def word_epoch(slots, radius):
+                """The word step (B1, JAX's run_word_epochs): founders into
+                the packed member word (the table's ``members``), one
+                epoch-kernel call, the slot update."""
+                word = slots.members
+                # founders: their cells are uncovered and distinct, so
+                # adding the slot bits sets exactly the new founder bits
+                newly, new_seed, new_rank = ops.pick_founders(slots,
+                                                              word != 0)
+                s = ops.found(slots._replace(members=None), newly, new_seed,
+                              new_rank)
+                nr = (new_seed % h).long()
+                nc = (new_seed // h).clamp(0, w - 1).long()
+                wflat = word.reshape(-1).clone()
+                wflat.scatter_add_(0, (bidx * hw + nr * w + nc).reshape(-1),
+                                   torch.where(newly, kbits[None], 0)
+                                   .reshape(-1))
+                new_word, counts, member_rank, anchor, mom = \
+                    epoch_word.epoch_word(
+                        *pxyz, rank_grid, elig_i32, wflat.reshape(b, h, w),
+                        s.rank.contiguous(), s.alive.to(torch.int32),
+                        s.plane.contiguous(), (s.seed_idx % h).to(torch.int32),
+                        (s.seed_idx // h).clamp(0, w - 1).to(torch.int32),
+                        torch.full((b,), radius, dtype=torch.int32,
+                                   device=dev), tau, flood_rounds, impl=impl)
+                s = ops.after_claims(s, counts, member_rank, anchor,
+                                     lambda _: mom)
+                # distinct bits sum without carry (bit 31 is the sign, no
+                # overflow)
+                new_word = new_word & torch.where(s.alive, kbits[None], 0) \
+                    .sum(dim=1, dtype=torch.int32)[:, None, None]
+                return (s._replace(members=new_word),
+                        (new_word != word).flatten(1).any(dim=1))
+
+            slots = _closure(slots._replace(members=flood_packed.pack_bits(
+                slots.members)[:, 0]), word_epoch, **schedule)
+            slots = slots._replace(members=flood_packed.unpack_bits(
+                slots.members[:, None], k_cap))
         else:
-            first_full = _first_full(radii, h, w_total)
-            active = torch.ones(b, dtype=torch.bool, device=dev)
-            for i, radius in enumerate(radii):
-                if i > 0:
-                    with profiling.blocking("grower.freeze"):
-                        if not bool(active.any()):
-                            break
-                profiling.count("grower.epochs")
-                new = flood_epoch(slots, radius)
-                # replicated across the shards, so their loops stay in step
-                stable = bk.psum((new.members != slots.members).flatten(1)
-                                 .sum(dim=1, dtype=torch.int32)) == 0
-                slots = _select_frames(active, new, slots)
-                if i >= first_full:
-                    active = active & ~stable
+            slots = _closure(slots, flood_epoch, **schedule)
 
     # --- degenerate-attempt resolution -----------------------------------
     with profiling.stage("grower.tail"):
@@ -809,71 +843,33 @@ def grow_planar_regions_batched(
                              .sum(dim=(1, 2), dtype=torch.int32)) > 0)
 
 
-def _first_full(radii, h, w):
-    """Index of the first unboxed epoch: from there on a frame whose
-    members an epoch leaves unchanged stops."""
-    return next((j for j, r in enumerate(radii) if r >= max(h, w)),
-                len(radii) - 1)
-
-
-def run_word_epochs(slots, radii, *, points, rank_grid, eligible0,
-                    pick_founders, found, reanchor,
-                    solve_with_hint, apply_refit, tau, flood_rounds, impl):
-    """Stage B: one epoch-kernel call per epoch on the packed member word,
-    with the slot-table updates between calls (JAX's run_word_epochs). A
-    frame freezes once an unboxed epoch leaves its word unchanged."""
-    b, h, w = points.shape[:3]
-    k_cap = slots.rank.shape[1]
-    dev = points.device
-    bidx = torch.arange(b, device=dev)[:, None]
-    px, py, pz = (points[..., i].contiguous() for i in range(3))
-    elig_i32 = eligible0.to(torch.int32)
-    with profiling.blocking("grower.kbits"):
-        kbits = torch.tensor([(1 << k) - (1 << 32 if k == 31 else 0)
-                              for k in range(k_cap)], dtype=torch.int32,
-                             device=dev)
-    word = flood_packed.pack_bits(slots.members)[:, 0]
-    slots = slots._replace(members=None)
-    first_full = _first_full(radii, h, w)
-    active = torch.ones(b, dtype=torch.bool, device=dev)
+def _closure(slots, epoch, *, span, size, closure_epochs) -> _Slots:
+    """Stage B's one loop: epochs under Chebyshev boxes of radius
+    2 * ``span`` growing by 4/3 an epoch while below ``size`` (the grid's
+    longer side), then ``closure_epochs`` + 1 unboxed ones. An epoch step
+    ``epoch(slots, radius)`` returns the next table and, per frame, whether
+    it changed the members. A frame freezes once an unboxed epoch leaves it
+    unchanged and keeps its table while the others go on; the loop ends
+    when every frame froze (a host sync before every epoch but the
+    first)."""
+    radii = []
+    radius = 2 * span
+    while radius < size:
+        radii.append(radius)
+        radius = (radius * 4) // 3
+    first_full = len(radii)
+    radii += [size] * (closure_epochs + 1)
+    profiling.count("grower.epochs_scheduled", len(radii))
+    active = torch.ones(slots.rank.shape[0], dtype=torch.bool,
+                        device=slots.rank.device)
     for i, radius in enumerate(radii):
         if i > 0:
             with profiling.blocking("grower.freeze"):
                 if not bool(active.any()):
                     break
         profiling.count("grower.epochs")
-        prev_slots, prev_word = slots, word
-        # founders: their cells are uncovered and distinct, so adding the
-        # slot bits sets exactly the new founder bits
-        newly, new_seed, new_rank = pick_founders(slots, word != 0)
-        s = found(slots, newly, new_seed, new_rank)
-        nr = (new_seed % h).long()
-        nc = (new_seed // h).clamp(0, w - 1).long()
-        add = torch.where(newly, kbits[None], 0)
-        wflat = word.reshape(-1).clone()
-        wflat.scatter_add_(0, (bidx * (h * w) + nr * w + nc).reshape(-1),
-                           add.reshape(-1))
-        wd = wflat.reshape(b, h, w)
-        ar = (s.seed_idx % h).to(torch.int32)
-        ac = (s.seed_idx // h).clamp(0, w - 1).to(torch.int32)
-        new_word, counts, member_rank, anchor_lin, mom = epoch_word.epoch_word(
-            px, py, pz, rank_grid, elig_i32, wd, s.rank.contiguous(),
-            s.alive.to(torch.int32), s.plane.contiguous(), ar, ac,
-            torch.full((b,), radius, dtype=torch.int32, device=dev), tau,
-            flood_rounds, impl=impl)
-        alive = s.alive & (counts > 0) & (member_rank < INF_RANK)
-        # distinct bits sum without carry (bit 31 is the sign, no overflow)
-        keep = torch.where(alive, kbits[None], 0).sum(dim=1,
-                                                      dtype=torch.int32)
-        wd = new_word & keep[:, None, None]
-        s = reanchor(s, alive, member_rank,
-                     torch.where(alive, anchor_lin, s.seed_idx))
-        _, sol = solve_with_hint(mom, s.hint)
-        s = apply_refit(s, counts, sol)
-        slots = _select_frames(active, s, prev_slots)
-        word = torch.where(active[:, None, None], wd, prev_word)
+        new, changed = epoch(slots, radius)
+        slots = _select_frames(active, new, slots)
         if i >= first_full:
-            stable = (word == prev_word).all(dim=2).all(dim=1)
-            active = active & ~stable
-    return slots._replace(members=flood_packed.unpack_bits(word[:, None],
-                                                           k_cap))
+            active = active & changed
+    return slots

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from pcseg_tpu_torch.kernels import epoch_word
-from pcseg_tpu_torch.models import pipeline
+from pcseg_tpu_torch.models import config, pipeline, planar_batched
 from pcseg_tpu_torch.ops import unproject
 from pcseg_tpu_torch.utils import profiling
 from pcseg_tpu_torch.utils.synthetic import synthetic_cluttered_room_cloud
@@ -64,15 +64,19 @@ def parents(req):
     return out
 
 
-def epoch_spy(monkeypatch):
-    """Count the grower's epoch calls (one per closure epoch at K <= 32)."""
+def epoch_spy(monkeypatch, k_cap=32):
+    """Count the grower's epoch steps: one epoch-kernel call each in the
+    word step (K <= 32), one flood each in the flood step (K > 32; the
+    full-grid stage A of grids under 64 rows floods nothing)."""
     calls = []
-    real = epoch_word.epoch_word
+    mod, name = (epoch_word, "epoch_word") if k_cap <= 32 \
+        else (planar_batched, "flood_fill_static")
+    real = getattr(mod, name)
 
     def spy(*a, **kw):
         calls.append(1)
         return real(*a, **kw)
-    monkeypatch.setattr(epoch_word, "epoch_word", spy)
+    monkeypatch.setattr(mod, name, spy)
     return calls
 
 
@@ -111,10 +115,15 @@ def sync_sites(req):
     return {k: v for k, v in out.items() if v}
 
 
-def test_a_stream_request_records_its_span_tree(monkeypatch):
+@pytest.mark.parametrize("k_cap", [32, 40])
+def test_a_stream_request_records_its_span_tree(monkeypatch, k_cap):
+    """At 32 slots the closure runs the word step, at 40 the flood step:
+    the same sync sites under the one closure loop, the word's slot bits
+    at 32 only."""
     d16, rays = scenes(H, W, 2)
-    seg = pipeline.Segmenter(device="cpu")
-    calls = epoch_spy(monkeypatch)
+    seg = pipeline.Segmenter(config.SegmenterConfig(
+        planar=config.PlanarRegionConfig(max_regions=k_cap)), device="cpu")
+    calls = epoch_spy(monkeypatch, k_cap)
     n0 = len(profiling.requests())
     seg.device_forward_stream(d16, torch.from_numpy(rays), torch.zeros(3))
     reqs = profiling.requests()
@@ -127,10 +136,11 @@ def test_a_stream_request_records_its_span_tree(monkeypatch):
     assert req.counters["grower.epochs_scheduled"] >= len(calls)
     # the depth frames come from host memory; rays and origin are tensors
     # on the device already
-    assert sync_sites(req) == {
-        "sync:input": 1, "sync:grower.kbits": 1,
-        "sync:grower.freeze": freeze_tests(req),
-        "sync:clusters.threshold": 1}
+    want = {"sync:input": 1, "sync:grower.freeze": freeze_tests(req),
+            "sync:clusters.threshold": 1}
+    if k_cap <= 32:
+        want["sync:grower.kbits"] = 1
+    assert sync_sites(req) == want
 
 
 def test_a_frame_request_records_its_span_tree(monkeypatch):
