@@ -20,15 +20,18 @@ module for the full semantics map to segmentation.h / planar_region.h).
     epochs (3); every flood stops at its fixed point or after
     ``flood_rounds`` rounds (64). A frame freezes once an unboxed epoch
     leaves its members unchanged (JAX's while_loop under vmap); frozen
-    frames keep their state while the others go on, and the loop ends
-    when all froze. The loop runs one of two epoch steps. With K <= 32 on
-    one device the word step: one call of the epoch kernel
+    frames keep their state while the others go on. The loop runs one of
+    two epoch steps. With K <= 32 on one device the word step
+    (``_word_closure``): one call of the epoch kernel
     (kernels/epoch_word.py) on the packed member word, as JAX runs it on a
-    TPU. With K > 32 (more slots than a word has bits), or with a sharded
-    backend, the flood step: it builds the slots' gates, floods them from
-    the anchors on packed word planes (kernels/flood_packed.py) and
-    settles the claims, as JAX's ``epoch``. Both end in the same slot
-    update as stage A's generations (``_SlotOps.after_claims``).
+    TPU; it runs every scheduled epoch with the freeze on the device, and
+    on a card replays as CUDA graphs between the kernel's calls
+    (``_closure_replayed``). With K > 32 (more slots than a word has bits),
+    or with a sharded backend, the flood step: it builds the slots' gates,
+    floods them from the anchors on packed word planes
+    (kernels/flood_packed.py) and settles the claims, as JAX's ``epoch``;
+    its loop ends when every frame froze. Both end in the same slot update
+    as stage A's generations (``_SlotOps.after_claims``).
   * Tail: degenerate (collinear) slots dissolve into an adjacent robust
     slot covering >= 90% of their members; final claims, acceptance and
     dense ids in rank order.
@@ -490,60 +493,209 @@ def _stage_a_patched(points, normals, eligible0, rank_grid, *, k_cap, tau,
     return slots._replace(members=members)
 
 
-class _StageAGraph:
-    """:func:`_stage_a_patched` captured once as a CUDA graph over static
-    input buffers. A replay copies a call's inputs in, launches the graph
-    and copies its outputs out, so nothing it returns aliases the graph's
-    memory pool."""
+class _Capturing(threading.local):
+    hook = None  # the eager calls' hook of the _Graph this thread captures
 
-    def __init__(self, inputs, params):
+
+_capturing = _Capturing()
+
+
+def _eager(thunk):
+    """``thunk()``'s tensors: a call that a :class:`_Graph` keeps out of
+    its graphs (a kernel's wrapper, which then launches it at every replay
+    as an eager run does). Outside a graph's warm-up and capture it is just
+    the call."""
+    hook = _capturing.hook
+    return thunk() if hook is None else hook(thunk)
+
+
+class _Graph:
+    """``fn(*inputs, **params)`` captured once as CUDA graphs over static
+    input buffers (:func:`_stage_a_patched`, :func:`_word_closure`). A
+    replay copies a call's inputs in, launches the graphs and copies the
+    outputs out, so nothing it returns aliases the graphs' memory.
+
+    Each :func:`_eager` call of ``fn`` ends one graph and begins the next,
+    all in one memory pool; a replay runs its thunk between the two, on
+    the tensors it captured, and copies the results into the buffers the
+    next graph reads. Every thunk's results share those buffers, so they
+    match in shapes and dtypes and ``fn`` reads them before its next eager
+    call. What the captured code counts (``profiling.count``), each replay
+    counts."""
+
+    def __init__(self, fn, inputs, params):
         self.inputs = [x.clone() for x in inputs]
+        self.results = None
+        self.thunks = []
         dev = inputs[0].device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            # warm-up outside the capture: cuBLAS workspaces, kernels
-            # loaded on their first launch
-            _stage_a_patched(*self.inputs, **params)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
         # captured on the inputs' card (torch's default capture stream
         # lives on the card of the process's first capture)
-        with torch.cuda.graph(self.graph, stream=side):
-            self.outputs = _stage_a_patched(*self.inputs, **params)
+        try:
+            with torch.cuda.stream(side):
+                # warm-up outside the capture: cuBLAS workspaces, kernels
+                # loaded on their first launch, the results' buffers
+                _capturing.hook = self._warm
+                fn(*self.inputs, **params)
+                self.pool = torch.cuda.graph_pool_handle()
+                self.graphs = [torch.cuda.CUDAGraph()]
+                _capturing.hook = self._split
+                with profiling.diverted() as self.counts:
+                    self.graphs[0].capture_begin(pool=self.pool)
+                    try:
+                        self.outputs = fn(*self.inputs, **params)
+                    finally:
+                        self.graphs[-1].capture_end()
+        finally:
+            _capturing.hook = None
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def _warm(self, thunk):
+        out = thunk()
+        if self.results is None:
+            self.results = [torch.empty_like(r) for r in out]
+        return out
+
+    def _split(self, thunk):
+        self.graphs[-1].capture_end()
+        self.thunks.append(thunk)
+        self.graphs.append(torch.cuda.CUDAGraph())
+        self.graphs[-1].capture_begin(pool=self.pool)
+        return self.results
+
+    def run(self):
+        """The graphs on the current inputs, the eager calls between
+        them."""
+        self.graphs[0].replay()
+        for thunk, graph in zip(self.thunks, self.graphs[1:]):
+            for buf, r in zip(self.results, thunk()):
+                buf.copy_(r)
+            graph.replay()
+        for name, n in self.counts.items():
+            profiling.count(name, n)
 
     def replay(self, inputs) -> _Slots:
         for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
-        self.graph.replay()
+        self.run()
         return _Slots(*[o.clone() for o in self.outputs])
 
 
-# one graph per device, shapes, dtypes and stage-A parameters, for the
-# process's life; the lock keeps a call's copies in, replay and copies out
-# together when threads share a card's stream
-_STAGE_A_GRAPHS = {}
-_STAGE_A_LOCK = threading.Lock()
+# one graph per stage, device, input shapes and dtypes and parameters, for
+# the process's life; the lock keeps a call's copies in, replay and copies
+# out together when threads share a card's stream
+_GRAPHS = {}
+_GRAPH_LOCK = threading.Lock()
+
+
+def _replayed(stage, fn, inputs, params) -> _Slots:
+    """``fn(*inputs, **params)`` on a card as its :class:`_Graph`. The
+    first call for a key (the stage, the device, the inputs' shapes and
+    dtypes, every parameter) captures it, a host sync
+    (``grower.<stage>_capture``); counters ``grower.<stage>_graph_captures``
+    and ``grower.<stage>_graph_replays``."""
+    dev = inputs[0].device
+    key = (stage, dev, *[(x.shape, x.dtype) for x in inputs],
+           *sorted(params.items()))
+    with _GRAPH_LOCK, torch.cuda.device(dev):
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            with profiling.blocking(f"grower.{stage}_capture"):
+                graph = _GRAPHS[key] = _Graph(fn, inputs, params)
+            profiling.count(f"grower.{stage}_graph_captures")
+        profiling.count(f"grower.{stage}_graph_replays")
+        return graph.replay(inputs)
 
 
 def _stage_a_replayed(points, normals, eligible0, rank_grid,
                       **params) -> _Slots:
     """:func:`_stage_a_patched` on a card: a few hundred small launches a
     generation, which the host cannot launch as fast as the card runs them,
-    so they replay as one CUDA graph. The first call for a key (the
-    device, the grids' shapes and dtypes, every parameter) captures it;
-    the capture waits for the card, as a host sync."""
-    inputs = (points, normals, eligible0, rank_grid)
-    key = (points.device, *points.shape[:3], points.dtype, normals.dtype,
-           *sorted(params.items()))
-    with _STAGE_A_LOCK, torch.cuda.device(points.device):
-        graph = _STAGE_A_GRAPHS.get(key)
-        if graph is None:
-            with profiling.blocking("grower.stage_a_capture"):
-                graph = _STAGE_A_GRAPHS[key] = _StageAGraph(inputs, params)
-            profiling.count("grower.stage_a_graph_captures")
-        profiling.count("grower.stage_a_graph_replays")
-        return graph.replay(inputs)
+    so they replay as one CUDA graph."""
+    return _replayed("stage_a", _stage_a_patched,
+                     (points, normals, eligible0, rank_grid), params)
+
+
+# bit k of a cell's member word is slot k's membership
+_KBITS = {}
+
+
+def _kbits(dev):
+    """[32] int32: entry k holds bit k alone (entry 31 the sign bit), made
+    on ``dev`` once per device."""
+    bits = _KBITS.get(dev)
+    if bits is None:
+        k = torch.arange(32, dtype=torch.int64, device=dev)
+        bits = _KBITS.setdefault(dev, (
+            torch.bitwise_left_shift(torch.ones_like(k), k)
+            - torch.where(k == 31, 1 << 32, 0)).to(torch.int32))
+    return bits
+
+
+def _word_closure(points, normals, eligible0, rank_grid, *table, tau, period,
+                  flood_rounds, span, size, closure_epochs,
+                  impl=None) -> _Slots:
+    """Stage B's word step (K <= 32 on one device; B1, JAX's
+    ``run_word_epochs``) over the slot table ``table`` (a :class:`_Slots`'
+    fields, [B, K, H, W] members): the members packed into one int32 word
+    a cell, :func:`_closure` over every scheduled epoch with the freeze on
+    the device, the members unpacked. B1's call is :func:`_eager`."""
+    slots = _Slots(*table)
+    b, h, w = points.shape[:3]
+    hw = h * w
+    k_cap = slots.rank.shape[1]
+    dev = points.device
+    ops = _slot_ops(points, normals, rank_grid, GrowerBackend(impl), period)
+    kbits = _kbits(dev)[:k_cap]
+    pxyz = [points[..., i].contiguous() for i in range(3)]
+    elig_i32 = eligible0.to(torch.int32)
+    bidx = torch.arange(b, device=dev)[:, None]
+
+    def word_epoch(slots, radius):
+        """Founders into the packed member word (the table's ``members``),
+        one epoch-kernel call, the slot update."""
+        word = slots.members
+        # founders: their cells are uncovered and distinct, so adding the
+        # slot bits sets exactly the new founder bits
+        newly, new_seed, new_rank = ops.pick_founders(slots, word != 0)
+        s = ops.found(slots._replace(members=None), newly, new_seed,
+                      new_rank)
+        nr = (new_seed % h).long()
+        nc = (new_seed // h).clamp(0, w - 1).long()
+        wflat = word.reshape(-1).clone()
+        wflat.scatter_add_(0, (bidx * hw + nr * w + nc).reshape(-1),
+                           torch.where(newly, kbits[None], 0).reshape(-1))
+        args = (*pxyz, rank_grid, elig_i32, wflat.reshape(b, h, w),
+                s.rank.contiguous(), s.alive.to(torch.int32),
+                s.plane.contiguous(), (s.seed_idx % h).to(torch.int32),
+                (s.seed_idx // h).clamp(0, w - 1).to(torch.int32),
+                torch.full((b,), radius, dtype=torch.int32, device=dev))
+        new_word, counts, member_rank, anchor, mom = _eager(
+            lambda: epoch_word.epoch_word(*args, tau, flood_rounds,
+                                          impl=impl))
+        s = ops.after_claims(s, counts, member_rank, anchor, lambda _: mom)
+        # distinct bits sum without carry (bit 31 is the sign, no overflow)
+        new_word = new_word & torch.where(s.alive, kbits[None], 0) \
+            .sum(dim=1, dtype=torch.int32)[:, None, None]
+        return (s._replace(members=new_word),
+                (new_word != word).flatten(1).any(dim=1))
+
+    slots = _closure(slots._replace(members=flood_packed.pack_bits(
+        slots.members)[:, 0]), word_epoch, span=span, size=size,
+        closure_epochs=closure_epochs, host_freeze=False)
+    return slots._replace(members=flood_packed.unpack_bits(
+        slots.members[:, None], k_cap))
+
+
+def _closure_replayed(points, normals, eligible0, rank_grid, *table,
+                      **params) -> _Slots:
+    """:func:`_word_closure` on a card: ~530 small launches an epoch
+    around its B1 call, which the host cannot launch as fast as the card
+    runs them, so they replay as CUDA graphs; B1 stays eager between them,
+    launched by its wrapper."""
+    return _replayed("closure", _word_closure,
+                     (points, normals, eligible0, rank_grid, *table), params)
 
 
 @takes_frames(points=3, normals=3, labels=2, seed_indices=1, seed_valid=1,
@@ -718,52 +870,12 @@ def grow_planar_regions_batched(
         schedule = dict(span=span, size=max(h, w_total),
                         closure_epochs=closure_epochs)
         if k_cap <= 32 and backend is None:
-            # bit k of a cell's word is slot k's membership
-            with profiling.blocking("grower.kbits"):
-                kbits = torch.tensor([(1 << k) - (1 << 32 if k == 31 else 0)
-                                      for k in range(k_cap)],
-                                     dtype=torch.int32, device=dev)
-            pxyz = [points[..., i].contiguous() for i in range(3)]
-            elig_i32 = eligible0.to(torch.int32)
-
-            def word_epoch(slots, radius):
-                """The word step (B1, JAX's run_word_epochs): founders into
-                the packed member word (the table's ``members``), one
-                epoch-kernel call, the slot update."""
-                word = slots.members
-                # founders: their cells are uncovered and distinct, so
-                # adding the slot bits sets exactly the new founder bits
-                newly, new_seed, new_rank = ops.pick_founders(slots,
-                                                              word != 0)
-                s = ops.found(slots._replace(members=None), newly, new_seed,
-                              new_rank)
-                nr = (new_seed % h).long()
-                nc = (new_seed // h).clamp(0, w - 1).long()
-                wflat = word.reshape(-1).clone()
-                wflat.scatter_add_(0, (bidx * hw + nr * w + nc).reshape(-1),
-                                   torch.where(newly, kbits[None], 0)
-                                   .reshape(-1))
-                new_word, counts, member_rank, anchor, mom = \
-                    epoch_word.epoch_word(
-                        *pxyz, rank_grid, elig_i32, wflat.reshape(b, h, w),
-                        s.rank.contiguous(), s.alive.to(torch.int32),
-                        s.plane.contiguous(), (s.seed_idx % h).to(torch.int32),
-                        (s.seed_idx // h).clamp(0, w - 1).to(torch.int32),
-                        torch.full((b,), radius, dtype=torch.int32,
-                                   device=dev), tau, flood_rounds, impl=impl)
-                s = ops.after_claims(s, counts, member_rank, anchor,
-                                     lambda _: mom)
-                # distinct bits sum without carry (bit 31 is the sign, no
-                # overflow)
-                new_word = new_word & torch.where(s.alive, kbits[None], 0) \
-                    .sum(dim=1, dtype=torch.int32)[:, None, None]
-                return (s._replace(members=new_word),
-                        (new_word != word).flatten(1).any(dim=1))
-
-            slots = _closure(slots._replace(members=flood_packed.pack_bits(
-                slots.members)[:, 0]), word_epoch, **schedule)
-            slots = slots._replace(members=flood_packed.unpack_bits(
-                slots.members[:, None], k_cap))
+            word_closure = _closure_replayed \
+                if dev.type == "cuda" and impl is None else _word_closure
+            slots = word_closure(points, normals, eligible0, rank_grid,
+                                 *slots, tau=tau, period=period,
+                                 flood_rounds=flood_rounds, impl=impl,
+                                 **schedule)
         else:
             slots = _closure(slots, flood_epoch, **schedule)
 
@@ -843,15 +955,18 @@ def grow_planar_regions_batched(
                              .sum(dim=(1, 2), dtype=torch.int32)) > 0)
 
 
-def _closure(slots, epoch, *, span, size, closure_epochs) -> _Slots:
+def _closure(slots, epoch, *, span, size, closure_epochs,
+             host_freeze=True) -> _Slots:
     """Stage B's one loop: epochs under Chebyshev boxes of radius
     2 * ``span`` growing by 4/3 an epoch while below ``size`` (the grid's
     longer side), then ``closure_epochs`` + 1 unboxed ones. An epoch step
     ``epoch(slots, radius)`` returns the next table and, per frame, whether
     it changed the members. A frame freezes once an unboxed epoch leaves it
-    unchanged and keeps its table while the others go on; the loop ends
-    when every frame froze (a host sync before every epoch but the
-    first)."""
+    unchanged and keeps its table while the others go on. With
+    ``host_freeze`` the loop ends when every frame froze (a host sync
+    before every epoch but the first); without it every scheduled epoch
+    runs and the freeze stays on the device, with the same tables: epochs
+    after every frame froze keep every frame's."""
     radii = []
     radius = 2 * span
     while radius < size:
@@ -863,7 +978,7 @@ def _closure(slots, epoch, *, span, size, closure_epochs) -> _Slots:
     active = torch.ones(slots.rank.shape[0], dtype=torch.bool,
                         device=slots.rank.device)
     for i, radius in enumerate(radii):
-        if i > 0:
+        if host_freeze and i > 0:
             with profiling.blocking("grower.freeze"):
                 if not bool(active.any()):
                     break

@@ -17,7 +17,8 @@ machine (about 0.05% of a VGA request).
     recording it also opens a ``record_function`` range, so the program's
     spans land in the profiler's trace beside the kernels they launched.
   * ``count(name, n)``: adds to the open request's counters and to the
-    process totals (``total(name)``).
+    process totals (``total(name)``); ``diverted()`` collects a block's
+    counts apart (a CUDA graph's capture).
   * ``blocking(site, n)``: wraps a call at which the host waits for the
     card (a copy to or from pageable host memory, a device value read on
     the host): counts ``host_syncs`` (``n`` of them), adds its time to
@@ -61,6 +62,7 @@ _on = True
 
 class _Thread(threading.local):
     req = None  # the thread's open Request
+    diverted = None  # the dict that takes the thread's counts (diverted())
 
 
 _thread = _Thread()
@@ -220,9 +222,26 @@ def to_device(x, dtype, device, site: str = "input"):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` of the open request and of the
-    process."""
+    process (inside ``diverted()``, to its dict alone)."""
     if _on:
-        _count(_thread.req, name, n)
+        into = _thread.diverted
+        if into is None:
+            _count(_thread.req, name, n)
+        else:
+            into[name] = into.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def diverted():
+    """Collect the thread's counts in the block into the yielded dict,
+    and neither into its request nor into the totals: a CUDA graph's
+    capture runs the program's code without running its work, so what it
+    counts belongs to each replay."""
+    was, _thread.diverted = _thread.diverted, {}
+    try:
+        yield _thread.diverted
+    finally:
+        _thread.diverted = was
 
 
 def total(name: str) -> int:

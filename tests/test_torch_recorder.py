@@ -41,11 +41,12 @@ FRAME_SPANS = {
     "discontinuity": "request.frame", "host_finalize": "request.frame",
     **{"finalize." + k: "host_finalize"
        for k in ("copy", "boundary", "classify", "recluster", "extract")}}
-# the 14 metrics that read the recorder, by the request kind they read
+# the 16 metrics that read the recorder, by the request kind they read
 RECORDER_METRICS = {
     kind: {f"{m}.{kind}" for m in (
         "host_syncs", "sync_wait_ms", "grower_epochs", "grower_stage_a_ms",
-        "grower_closure_ms", "grower_tail_ms", "stage_a_graph_replays")}
+        "grower_closure_ms", "grower_tail_ms", "stage_a_graph_replays",
+        "closure_graph_replays")}
     for kind in ("stream", "frame")}
 
 
@@ -81,8 +82,9 @@ def epoch_spy(monkeypatch, k_cap=32):
 
 
 def freeze_tests(req):
-    """The freeze tests the closure loop made: one before every epoch but
-    the first, and one more where it stopped before the schedule's end."""
+    """The freeze tests the flood step's closure loop made: one before
+    every epoch but the first, and one more where it stopped before the
+    schedule's end."""
     ran = req.counters["grower.epochs"]
     return ran - 1 + (ran < req.counters["grower.epochs_scheduled"])
 
@@ -117,9 +119,9 @@ def sync_sites(req):
 
 @pytest.mark.parametrize("k_cap", [32, 40])
 def test_a_stream_request_records_its_span_tree(monkeypatch, k_cap):
-    """At 32 slots the closure runs the word step, at 40 the flood step:
-    the same sync sites under the one closure loop, the word's slot bits
-    at 32 only."""
+    """At 32 slots the closure runs the word step, every scheduled epoch
+    with the freeze on the device and no host sync; at 40 the flood step,
+    whose loop tests the freeze on the host."""
     d16, rays = scenes(H, W, 2)
     seg = pipeline.Segmenter(config.SegmenterConfig(
         planar=config.PlanarRegionConfig(max_regions=k_cap)), device="cpu")
@@ -131,15 +133,16 @@ def test_a_stream_request_records_its_span_tree(monkeypatch, k_cap):
     req = reqs[-1]
     assert req.kind == "stream" and req.id > 0
     check_tree(req, STREAM_SPANS)
-    assert parents(req)["sync:grower.freeze"] == {"grower.closure"}
     assert req.counters["grower.epochs"] == len(calls) > 0
     assert req.counters["grower.epochs_scheduled"] >= len(calls)
     # the depth frames come from host memory; rays and origin are tensors
     # on the device already
-    want = {"sync:input": 1, "sync:grower.freeze": freeze_tests(req),
-            "sync:clusters.threshold": 1}
+    want = {"sync:input": 1, "sync:clusters.threshold": 1}
     if k_cap <= 32:
-        want["sync:grower.kbits"] = 1
+        assert req.counters["grower.epochs_scheduled"] == len(calls)
+    else:
+        assert parents(req)["sync:grower.freeze"] == {"grower.closure"}
+        want["sync:grower.freeze"] = freeze_tests(req)
     assert sync_sites(req) == want
 
 
@@ -151,12 +154,12 @@ def test_a_frame_request_records_its_span_tree(monkeypatch):
     req = profiling.requests()[-1]
     assert req.kind == "frame"
     check_tree(req, FRAME_SPANS)
-    assert req.counters["grower.epochs"] == len(calls) > 0
+    assert req.counters["grower.epochs"] == len(calls) == \
+        req.counters["grower.epochs_scheduled"]
     reclustered = res.metrics.num_planar_regions != \
         res.metrics.num_device_planar_regions
     want = {"sync:rays": 1, "sync:input": 2, "sync:rot": 1,
-            "sync:discontinuity.gates": 6, "sync:grower.kbits": 1,
-            "sync:grower.freeze": freeze_tests(req),
+            "sync:discontinuity.gates": 6,
             "sync:clusters.threshold": 1 + reclustered,
             "sync:payload": 13}
     if reclustered:
@@ -277,7 +280,7 @@ def test_program_spans_nest_under_the_request_in_a_trace(tmp_path):
 
     for child, parent in STREAM_SPANS.items():
         assert inside(child, parent), (child, parent)
-    assert inside("sync:grower.freeze", "grower.closure")
+    assert inside("sync:clusters.threshold", "clusters")
     assert inside("sync:input", "request.stream")
 
 
@@ -368,12 +371,17 @@ def test_traced_metrics_of_a_small_cell_read_the_recorder(workload):
                 if spec.applies(m, workload)}
     assert RECORDER_METRICS[kind] <= declared
     assert got[f"grower_epochs.{kind}"]["value"] >= 1
-    assert got[f"host_syncs.{kind}"]["value"] >= 3
+    # a stream request syncs at its input and the cluster threshold alone
+    if kind == "stream":
+        assert got["host_syncs.stream"]["value"] == 2
+    else:
+        assert got["host_syncs.frame"]["value"] >= 3
     assert got[f"sync_wait_ms.{kind}"]["value"] > 0
     for part in ("stage_a", "closure", "tail"):
         assert got[f"grower_{part}_ms.{kind}"]["value"] > 0
-    # the CPU's stage A runs eagerly: no graph
+    # the CPU's stage A and closure run eagerly: no graph
     assert got[f"stage_a_graph_replays.{kind}"]["value"] == 0
+    assert got[f"closure_graph_replays.{kind}"]["value"] == 0
 
 
 # -- on the card -------------------------------------------------------------
