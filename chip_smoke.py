@@ -8,7 +8,7 @@
 Phases (each prints one JSON line; any failure exits nonzero without the
 final result line):
   1. device: the card's name and power limit; TF32 off;
-  2. build: the four CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
+  2. build: the five CUDA kernels from ``pcseg_tpu_torch/csrc`` (one nvcc
      each, started together, with ptxas' report of each kernel's
      registers, shared memory and spills) and the host-ops library (g++),
      which must load;
@@ -91,7 +91,8 @@ final result line):
      ``jax_avg_stream_128x160.npz`` (frame 0 exact, frame 1 as
      AVG_STREAM_KNOWN records);
  16. mean shift: the cluttered VGA frame with ``ClusterMethod.MEAN_SHIFT``,
-     which must take the native growth, against its plain run, a rerun and
+     which must take the native growth with its shift as one launch of
+     ``mean_shift_modes`` (M1), against its plain run, a rerun and
      ``jax_options_vga.npz``; the device growth on the card against the
      host growth at 120x160 (labels agree on >= 99% of the cells, equal
      region counts, the rule of tests/test_mean_shift.py);
@@ -688,11 +689,12 @@ def kernel_counters():
     gives each kernel's ``launches.<name>`` counter of ``utils/profiling``
     since the last reset."""
     from pcseg_tpu_torch.kernels import (ccl_gated, epoch_word, flood_packed,
-                                         normal_support)
+                                         mean_shift_modes, normal_support)
     from pcseg_tpu_torch.utils import profiling
     kernels_mod = {"epoch_word": epoch_word, "ccl_gated": ccl_gated,
                    "flood_packed": flood_packed,
-                   "normal_support": normal_support}
+                   "normal_support": normal_support,
+                   "mean_shift_modes": mean_shift_modes}
     base = {}
 
     def reset_counts():
@@ -1121,8 +1123,7 @@ def main():
             payload = s._payload(pts_d, origin_d, None, None)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            s._host_finalize(pts, payload, None,
-                             lambda lab: s._clusters(pts_d, lab))
+            s._host_finalize(pts, pts_d, payload, None)
             host.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             s.segment_frame_stream(d16, rays, origin)
@@ -1519,9 +1520,11 @@ def option_phases(torch, card, dev, scenes, rays, origin, origin_d, rays_d,
                     native_growth_calls=len(native_calls))
     finally:
         mean_shift._sliding_mean_shift_native = real_native
-    if counts["epoch_word"] <= 0 or counts["ccl_gated"] != 0:
-        fail("the mean-shift frame must launch epoch_word and not the "
-             f"euclidean cluster stage's ccl_gated: {counts}")
+    if counts["epoch_word"] <= 0 or counts["ccl_gated"] != 0 \
+            or counts["mean_shift_modes"] != 1:
+        fail("the mean-shift frame must launch epoch_word, the shift's "
+             "mean_shift_modes once and not the euclidean cluster stage's "
+             f"ccl_gated: {counts}")
     mh, mw = MS_DEVICE_SHAPE
     from pcseg_tpu_torch.utils.synthetic import synthetic_cluttered_room_cloud
     m16 = unproject.encode_range(synthetic_cluttered_room_cloud(
@@ -1595,16 +1598,14 @@ def option_phases(torch, card, dev, scenes, rays, origin, origin_d, rays_d,
         times[f"temporal_k{k}"] = split_times(
             s, lambda s=s, tables=tables: s._payload(pts2_d, o2_d, None, None,
                                                      tables),
-            lambda p, s=s: s._host_finalize(
-                pts2, p, None, lambda lab: s._clusters(pts2_d, lab)),
+            lambda p, s=s: s._host_finalize(pts2, pts2_d, p, None),
             lambda s=s: s.segment_frame(pts2, origin2, None, prev, pose))
     dc_d = unproject.unproject_range(torch.from_numpy(dc).to(dev)[None],
                                      rays_d)
     for name, (s, _) in osegs.items():
         times[f"{name}_frame"] = split_times(
             s, lambda s=s: s._payload(dc_d, origin_d, None, None),
-            lambda p, s=s: s._host_finalize(
-                ptsc, p, None, lambda lab: s._clusters(dc_d, lab)),
+            lambda p, s=s: s._host_finalize(ptsc, dc_d, p, None),
             lambda s=s: s.segment_frame_stream(dc, rays, origin))
     times["avg_stream_b8_ms_per_batch"] = cuda_ms(
         torch, lambda: osegs["avg"][0].device_forward_stream(

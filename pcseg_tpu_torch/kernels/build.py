@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pcseg_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]
-SOURCES = ("epoch_word", "ccl_gated", "flood_packed", "normal_support")
+SOURCES = ("epoch_word", "ccl_gated", "flood_packed", "normal_support",
+           "mean_shift_modes")
 
 _loaded: dict = {}
 

@@ -12,8 +12,11 @@ the reference's mean_shift_segmentation.h:207-330).
     accepted regions suppress later modes within 1 m^2, rejected regions
     revert to UNLABELED (:262-328).
 
-Growths, as in JAX: ``"native"`` (the host-ops library runs modes and
-growth in one call, f64 sums; the pipeline's path), ``"host"`` (the exact
+Growths, as in JAX: ``"native"`` (the pipeline's path: the shift with
+f64 sums, by kernel M1 on a card or by the host-ops library elsewhere, then
+the library's FIFO growth; the spans ``mean_shift``, ``mean_shift.modes``
+and ``mean_shift.grow``, the counters ``mean_shift.seeds``,
+``.valid_modes`` and ``.regions``), ``"host"`` (the exact
 FIFO port in NumPy after the device shift), ``"device"`` (every mode's
 growth as a closure of window components on the device, one host loop over
 the modes) and ``"device_permode"`` (the same closure, ordered and
@@ -33,11 +36,13 @@ import numpy as np
 import torch
 
 from pcseg_tpu_torch import native
+from pcseg_tpu_torch.kernels import mean_shift_modes as ms_kernel
 from pcseg_tpu_torch.kernels.common import shift2
 from pcseg_tpu_torch.models.config import (UNLABELED, ClusterRegionConfig,
                                            MeanShiftParams)
 from pcseg_tpu_torch.ops import connectivity, nansafe, xla_order
 from pcseg_tpu_torch.ops.frames import frame0, takes_frames
+from pcseg_tpu_torch.utils import profiling
 
 
 class MeanShiftState(NamedTuple):
@@ -377,17 +382,22 @@ def grow_mean_shift_regions_device(points: np.ndarray, labels: np.ndarray,
 def sliding_mean_shift(points, labels, config: ClusterRegionConfig,
                        iterations: int, initial_region_id_offset: int = 0,
                        params: MeanShiftParams = MeanShiftParams(),
-                       growth: str = "device", device=None):
+                       growth: str = "device", device=None,
+                       points_device=None, impl=None):
     """SlidingMeanShift of one frame (mean_shift_segmentation.h:208):
     [H, W, 3] points and [H, W] int32 NumPy ``labels``, mutated in place.
     Returns the region list. ``growth``: "device", "device_permode",
     "host" or "native" (module docstring). The shift and the device
     growths run on ``device``: the CUDA card unless the caller passes
-    ``device="cpu"``; "native" runs on the host alone."""
+    ``device="cpu"``. "native" grows on the host; its shift is kernel M1
+    when ``device`` is a CUDA card (on ``points_device``, the points
+    already there, when given; ``impl="plain"`` takes its plain version),
+    else the host-ops library's."""
     if growth == "native":
         return _sliding_mean_shift_native(points, labels, config,
                                           iterations,
-                                          initial_region_id_offset, params)
+                                          initial_region_id_offset, params,
+                                          device, points_device, impl)
     if growth not in ("device", "device_permode", "host"):
         raise ValueError(f"unknown growth {growth!r}")
     device = _card(device)
@@ -406,44 +416,114 @@ def sliding_mean_shift(points, labels, config: ClusterRegionConfig,
 
 
 def _sliding_mean_shift_native(points, labels, config, iterations,
-                               initial_region_id_offset, params):
-    """growth='native': one host-ops call for modes and growth. It mirrors
-    the FIFO port with f64 sums in the shift (agreement-tested against the
-    f32 device shift, not bitwise). Two faults of the reference's library
-    are kept, so that the port gives JAX's pipeline result: the growth
-    window is 3x3 whatever ``half_search_window`` says, and the mode index
-    rounds half away from zero."""
+                               initial_region_id_offset, params,
+                               device=None, points_device=None, impl=None):
+    """growth='native': the shift, then the host-ops library's growth
+    (``pcseg_mean_shift_grow``). On a CUDA ``device`` the shift is kernel
+    M1 (kernels/mean_shift_modes.py) on ``points_device``, the frame's
+    [H, W, 3] f32 points already there (uploaded from ``points`` when
+    None), and the state comes back in one copy; elsewhere it is the
+    library's ``pcseg_mean_shift_shift``. The two give the same state bit
+    for bit, with f64 sums (against the f32 device shift of
+    :func:`mean_shift_modes` they are agreement-tested, not bitwise). Two
+    faults of the reference's library are kept, so that the port gives
+    JAX's pipeline result: the growth window is 3x3 whatever
+    ``half_search_window`` says, and the mode index rounds half away from
+    zero."""
     lib = native.load_hostops()
     if lib is None:
         raise RuntimeError("native hostops unavailable for growth='native'")
     h, w = labels.shape
+    n = h * w
     pts = np.asarray(points, np.float32)
-    occ = np.ascontiguousarray(
-        np.isfinite(pts).all(axis=-1).astype(np.uint8))
+    occ_b = np.isfinite(pts).all(axis=-1)
+    occ = np.ascontiguousarray(occ_b.astype(np.uint8))
     cells = np.ascontiguousarray(np.nan_to_num(pts, nan=0.0)
                                  .astype(np.float32))
     labels_c = np.ascontiguousarray(labels.astype(np.int32))
-    n_regions = lib.pcseg_mean_shift_grid(
-        cells.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        occ.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        h, w, int(iterations), int(params.half_search_window),
-        ctypes.c_float(params.square_distance_threshold),
-        ctypes.c_float(params.min_support),
-        ctypes.c_float(params.squared_centroid_distance_threshold),
-        ctypes.c_float(params.squared_neighbor_distance_threshold),
-        int(config.min_region_inliers), int(UNLABELED),
-        int(initial_region_id_offset),
-        labels_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    with profiling.stage("mean_shift"):
+        profiling.count("mean_shift.seeds", int(np.count_nonzero(
+            occ_b & (labels_c == UNLABELED))))
+        with profiling.stage("mean_shift.modes"):
+            if device is not None and torch.device(device).type == "cuda":
+                state = _device_modes(points_device, pts, labels_c,
+                                      iterations, params, device, impl)
+            else:
+                state = ms_kernel.unpack(
+                    np.empty(ms_kernel.BYTES_PER_PIXEL * n, np.uint8), n)
+                lib.pcseg_mean_shift_shift(
+                    _ptr(cells), _ptr(occ), h, w, int(iterations),
+                    int(params.half_search_window),
+                    ctypes.c_float(params.square_distance_threshold),
+                    ctypes.c_float(params.min_support), int(UNLABELED),
+                    _ptr(labels_c), *_state_ptrs(state))
+        profiling.count("mean_shift.valid_modes",
+                        int(np.count_nonzero(state.valid)))
+        with profiling.stage("mean_shift.grow"):
+            n_regions = lib.pcseg_mean_shift_grow(
+                _ptr(cells), _ptr(occ), h, w, *_state_ptrs(state),
+                ctypes.c_float(params.squared_centroid_distance_threshold),
+                ctypes.c_float(params.squared_neighbor_distance_threshold),
+                int(config.min_region_inliers), int(UNLABELED),
+                int(initial_region_id_offset), _ptr(labels_c))
+        profiling.count("mean_shift.regions", n_regions)
     labels[...] = labels_c
+    return _member_regions(pts, labels_c, n_regions,
+                           initial_region_id_offset)
+
+
+_CTYPES = {np.dtype(np.float32): ctypes.c_float,
+           np.dtype(np.uint8): ctypes.c_uint8,
+           np.dtype(np.int32): ctypes.c_int32}
+
+
+def _ptr(a: np.ndarray):
+    """A C pointer to the contiguous NumPy array ``a``."""
+    return a.ctypes.data_as(ctypes.POINTER(_CTYPES[a.dtype]))
+
+
+def _state_ptrs(state):
+    """The shift state's fields in the host library's argument order
+    (mode, fr, fc, valid, intensity)."""
+    return [_ptr(a) for a in (state.mode, state.fr, state.fc, state.valid,
+                              state.intensity)]
+
+
+def _device_modes(points_device, points, labels, iterations, params,
+                  device, impl):
+    """Kernel M1's state of one frame on the card, read back to the host in
+    one copy (the sync ``mean_shift.modes``): ``unpack``'s NumPy views."""
+    h, w = labels.shape
+    pts_d = points_device if points_device is not None else \
+        profiling.to_device(points, torch.float32, device, "mean_shift.points")
+    labels_d = profiling.to_device(labels, torch.int32, device,
+                                   "mean_shift.labels")
+    packed = ms_kernel.mean_shift_modes(pts_d.reshape(h, w, 3), labels_d,
+                                        iterations, params, impl=impl)
+    with profiling.blocking("mean_shift.modes"):
+        host = packed.cpu().numpy()
+    return ms_kernel.unpack(host, h * w)
+
+
+def _member_regions(points, labels, num, offset):
+    """The regions ``offset`` .. ``offset + num - 1`` of a label grid from
+    one pass over it: each region's inliers sorted col-major, and as its
+    seed the centroid of its members in row-major order (the seed
+    positions stay inside the library)."""
+    h, w = labels.shape
+    rid = labels.reshape(-1).astype(np.int64) - offset
+    members = np.nonzero((rid >= 0) & (rid < num))[0]
+    members = members[np.argsort(rid[members], kind="stable")]
+    flat_pts = points.reshape(-1, 3)
     regions: List[MeanShiftRegion] = []
-    for rid in range(n_regions):
-        label_id = rid + initial_region_id_offset
-        rr, cc = np.nonzero(labels_c == label_id)
-        # seed positions live only inside the library: the member centroid
-        pts_sel = pts[rr, cc]
+    groups = np.split(members, np.cumsum(np.bincount(rid[members],
+                                                     minlength=num))[:-1]) \
+        if num else []
+    for k, lin in enumerate(groups):
+        rr, cc = lin // w, lin % w
         regions.append(MeanShiftRegion(
-            label_id=label_id,
+            label_id=k + offset,
             inlier_indices=np.sort(cc * h + rr).astype(np.int64),
-            seed=pts_sel.mean(axis=0).astype(np.float32)
-            if len(rr) else np.zeros(3, np.float32)))
+            seed=flat_pts[lin].mean(axis=0).astype(np.float32)
+            if len(lin) else np.zeros(3, np.float32)))
     return regions

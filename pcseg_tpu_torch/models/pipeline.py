@@ -302,9 +302,7 @@ class Segmenter:
             payload = self._payload(pts, self._tensor(sensor_origin,
                                                       torch.float32),
                                     labels0, rot_robot, temporal)
-            return self._host_finalize(
-                points_np, payload, rot_robot,
-                lambda labels: self._clusters(pts, labels))
+            return self._host_finalize(points_np, pts, payload, rot_robot)
 
     def _temporal_tables(self, prev_regions, pose_cur_prev):
         """The previous records packed as JAX packs them: [1, K] tables of
@@ -357,14 +355,12 @@ class Segmenter:
                 points_np = unproject.unproject_range_np(
                     depth_np, np.asarray(rays, np.float32),
                     float(depth_scale))
-            return self._host_finalize(
-                points_np, payload, rot_robot,
-                lambda labels: self._clusters(pts, labels))
+            return self._host_finalize(points_np, pts, payload, rot_robot)
 
-    def _host_finalize(self, points_np, payload, rot_robot, recluster):
-        """Host half of one frame: ``payload`` is :meth:`_payload`'s dict
-        (frame axis of 1); ``recluster`` runs the cluster stage on the
-        device for a corrected [1, H, W] int32 label grid."""
+    def _host_finalize(self, points_np, pts, payload, rot_robot):
+        """Host half of one frame: ``points_np`` its [H, W, 3] f32 points
+        on the host, ``pts`` the same points on this device ([1, H, W,
+        3]), ``payload`` :meth:`_payload`'s dict (frame axis of 1)."""
         with profiling.stage("host_finalize"):
             cfg = self.config
             with profiling.stage("finalize.copy"), \
@@ -389,8 +385,8 @@ class Segmenter:
             num_planar = len(records)
             with profiling.stage("finalize.recluster"):
                 labels_final, num_clusters, cluster_sizes = self._recluster(
-                    points_np, labels, host, num_planar, int(dev.num_regions),
-                    recluster)
+                    points_np, pts, labels, host, num_planar,
+                    int(dev.num_regions))
 
             objects: List[extract.DetectedObject] = []
             with profiling.stage("finalize.extract"):
@@ -417,25 +413,28 @@ class Segmenter:
                                objects=objects, metrics=metrics,
                                classification_summary=summary)
 
-    def _recluster(self, points_np, labels, host, num_planar, num_device,
-                   recluster):
+    def _recluster(self, points_np, pts, labels, host, num_planar,
+                   num_device):
         """The finalize's clusters: (final labels, cluster count, cluster
         sizes) from the mean shift, or from the device clusters, clustered
-        again when the finalize rejected a device region."""
+        again on the device points ``pts`` when the finalize rejected a
+        device region."""
         cfg = self.config
         if not cfg.run_clustering:
             return labels, 0, np.zeros((0,), np.int32)
         labels_final = labels.copy()
         if not self._dev_cluster():
             # the mean shift (mean_shift_segmentation.h:207-330): region ids
-            # follow the planar ids; the host-ops library runs modes and
-            # growth in one call, the device growth without it
+            # follow the planar ids; with the host-ops library the shift
+            # runs on this device's points (kernel M1 on a card) and the
+            # library grows the modes, without it the device growth
             growth = "native" if native.load_hostops() is not None \
                 else "device"
             regions = mean_shift.sliding_mean_shift(
                 points_np, labels_final, cfg.cluster,
                 cfg.mean_shift_iterations, num_planar, cfg.mean_shift,
-                growth=growth, device=self.device)
+                growth=growth, device=self.device, points_device=pts[0],
+                impl=self.impl)
             return labels_final, len(regions), np.asarray(
                 [len(r.inlier_indices) for r in regions], np.int32)
         cl, num_clusters, sizes = (host["cres_labels"], int(host["cres_num"]),
@@ -444,8 +443,8 @@ class Segmenter:
             # the finalize rejected a device-accepted region: its cells
             # reverted to UNLABELED and are clusterable (the reference's
             # quarantine-then-reset), so cluster the corrected grid
-            c2 = recluster(self._tensor(labels, torch.int32,
-                                        site="recluster")[None])
+            c2 = self._clusters(pts, self._tensor(labels, torch.int32,
+                                                  site="recluster")[None])
             with profiling.blocking("recluster.read", 3):
                 cl = c2.labels[0].cpu().numpy()
                 num_clusters = int(c2.num_regions[0])

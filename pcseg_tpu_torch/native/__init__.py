@@ -78,6 +78,19 @@ def load_hostops() -> Optional[ctypes.CDLL]:
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32)]
+    f32p = ctypes.POINTER(ctypes.c_float)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.pcseg_mean_shift_shift.restype = None
+    lib.pcseg_mean_shift_shift.argtypes = [
+        f32p, u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_int32,
+        i32p, f32p, f32p, f32p, u8p, f32p]
+    lib.pcseg_mean_shift_grow.restype = ctypes.c_int32
+    lib.pcseg_mean_shift_grow.argtypes = [
+        f32p, u8p, ctypes.c_int32, ctypes.c_int32, f32p, f32p, f32p, u8p,
+        f32p, ctypes.c_float, ctypes.c_float, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, i32p]
     lib.pcseg_cluster_unorganized.restype = ctypes.c_int32
     lib.pcseg_cluster_unorganized.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64,

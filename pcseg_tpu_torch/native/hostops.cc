@@ -221,33 +221,33 @@ inline float ms_d2(const MsV3& a, const MsV3& b) {
 
 extern "C" {
 
-// cell_pts: [gx*gy*3] f32 centroids (garbage where !occ); occ: [gx*gy] u8;
-// labels (out): [gx*gy] i32, pre-filled with `unlabeled`; accepted region
-// ids are unlabeled_offset, unlabeled_offset+1, ... Returns #regions.
-int32_t pcseg_mean_shift_grid(
+// The shift fixed point of every seed cell (occupied and `unlabeled` in
+// `labels`, which is only read): cell_pts [gx*gy*3] f32 centroids (garbage
+// where !occ), occ [gx*gy] u8. Writes mode [gx*gy*3] f32, fr and fc
+// [gx*gy] f32 (fractional row and column), valid [gx*gy] u8 and
+// intensity [gx*gy] f32 (the last window support); a cell that never
+// seeds keeps mode 0, fr 0, fc 0, valid 0 and intensity 1. The order of
+// every operation is fixed (kernels/mean_shift_modes.py documents it; the
+// card's kernel M1, csrc/mean_shift_modes.cu, repeats it bit for bit).
+void pcseg_mean_shift_shift(
     const float* cell_pts, const uint8_t* occ, int32_t gx, int32_t gy,
     int32_t iterations, int32_t half_win, float sq_dist, float min_support,
-    float sq_centroid, float sq_neighbor, int32_t min_inliers,
-    int32_t unlabeled, int32_t id_offset, int32_t* labels) {
+    int32_t unlabeled, const int32_t* labels, float* mode_out, float* fr,
+    float* fc, uint8_t* valid, float* intensity) {
   const int cells = gx * gy;
   const MsV3* cell = reinterpret_cast<const MsV3*>(cell_pts);
-
-  std::vector<MsV3> mode(cells);
-  std::vector<float> fr(cells), fc(cells);
-  std::vector<uint8_t> valid(cells, 0);
-  std::vector<float> intensity(cells, 1.0f);
-  for (int c = 0; c < cells; ++c) {
-    if (!occ[c] || labels[c] != unlabeled) continue;
-    mode[c] = cell[c];
-    fr[c] = float(c / gy);
-    fc[c] = float(c % gy);
-    valid[c] = 1;
-  }
+  MsV3* mode = reinterpret_cast<MsV3*>(mode_out);
   // neighbor eligibility is fixed at entry (unlabeled & occupied),
   // mirroring mean_shift_modes' neighbor_ok_grid
   std::vector<uint8_t> nb_ok(cells, 0);
-  for (int c = 0; c < cells; ++c)
+  for (int c = 0; c < cells; ++c) {
     nb_ok[c] = occ[c] && labels[c] == unlabeled;
+    mode[c] = nb_ok[c] ? cell[c] : MsV3{0.0f, 0.0f, 0.0f};
+    fr[c] = nb_ok[c] ? float(c / gy) : 0.0f;
+    fc[c] = nb_ok[c] ? float(c % gy) : 0.0f;
+    valid[c] = nb_ok[c];
+    intensity[c] = 1.0f;
+  }
 
   for (int it = 0; it < iterations; ++it) {
     for (int c = 0; c < cells; ++c) {
@@ -282,6 +282,23 @@ int32_t pcseg_mean_shift_grid(
       intensity[c] = float(support);
     }
   }
+}
+
+// The growth from the shift's outputs (pcseg_mean_shift_shift's mode, fr,
+// fc, valid and intensity): the valid modes in stable ascending-intensity
+// order, each not yet suppressed grown FIFO from its rounded index, an
+// accepted region suppressing the later modes within sq_centroid, a
+// rejected one reverted. labels (in and out): [gx*gy] i32; accepted region
+// ids are id_offset, id_offset+1, ... Returns #regions.
+int32_t pcseg_mean_shift_grow(
+    const float* cell_pts, const uint8_t* occ, int32_t gx, int32_t gy,
+    const float* mode_in, const float* fr, const float* fc,
+    const uint8_t* valid, const float* intensity, float sq_centroid,
+    float sq_neighbor, int32_t min_inliers, int32_t unlabeled,
+    int32_t id_offset, int32_t* labels) {
+  const int cells = gx * gy;
+  const MsV3* cell = reinterpret_cast<const MsV3*>(cell_pts);
+  const MsV3* mode = reinterpret_cast<const MsV3*>(mode_in);
 
   std::vector<int32_t> order;
   order.reserve(cells);
@@ -337,6 +354,27 @@ int32_t pcseg_mean_shift_grid(
     }
   }
   return regions;
+}
+
+// The whole SlidingMeanShift in one call: pcseg_mean_shift_shift, then
+// pcseg_mean_shift_grow. labels (in and out): [gx*gy] i32, pre-filled
+// with `unlabeled` where free. Returns #regions.
+int32_t pcseg_mean_shift_grid(
+    const float* cell_pts, const uint8_t* occ, int32_t gx, int32_t gy,
+    int32_t iterations, int32_t half_win, float sq_dist, float min_support,
+    float sq_centroid, float sq_neighbor, int32_t min_inliers,
+    int32_t unlabeled, int32_t id_offset, int32_t* labels) {
+  const int cells = gx * gy;
+  std::vector<float> mode(3 * cells), fr(cells), fc(cells), intensity(cells);
+  std::vector<uint8_t> valid(cells);
+  pcseg_mean_shift_shift(cell_pts, occ, gx, gy, iterations, half_win,
+                         sq_dist, min_support, unlabeled, labels, mode.data(),
+                         fr.data(), fc.data(), valid.data(),
+                         intensity.data());
+  return pcseg_mean_shift_grow(cell_pts, occ, gx, gy, mode.data(), fr.data(),
+                               fc.data(), valid.data(), intensity.data(),
+                               sq_centroid, sq_neighbor, min_inliers,
+                               unlabeled, id_offset, labels);
 }
 
 }  // extern "C"
